@@ -1,0 +1,152 @@
+"""Brute-force (exact) KNN.
+
+Counterpart of ``raft_tpu/neighbors/brute_force.py``: ``build`` :68,
+``search`` :80, ``knn`` :360, ``save`` / ``load``. The expanded metrics (L2,
+L2-sqrt, inner product, cosine) run through the fused distance + top-k
+kernel (``ops.fused_topk``), prefilter included; the other metrics compute
+distance blocks in plain PyTorch (``distance.pairwise._block_distance``,
+XLA in the reference) merged into a running top-k. The reference's bf16
+``fast`` two-phase path needs ``refine``, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from raft_tpu_torch.core.resources import as_tensor, resolve_device
+from raft_tpu_torch.core.serialize import read_index_file, write_index_file
+from raft_tpu_torch.distance.pairwise import _EXPANDED, _block_distance, \
+    _expanded_path
+from raft_tpu_torch.distance.types import DistanceType, is_min_close, \
+    resolve_metric
+from raft_tpu_torch.neighbors.common import as_filter, blocked_topk, \
+    filter_keep, sentinel_for
+from raft_tpu_torch.ops import fused_topk
+
+_SERIAL_VERSION = 1
+
+_FUSED_KIND = {
+    DistanceType.L2Expanded: fused_topk.L2,
+    DistanceType.L2SqrtExpanded: fused_topk.L2,
+    DistanceType.CosineExpanded: fused_topk.COSINE,
+    DistanceType.InnerProduct: fused_topk.IP,
+}
+
+
+@dataclasses.dataclass
+class Index:
+    """The dataset plus precomputed squared norms for the expanded L2 and
+    cosine metrics."""
+
+    dataset: torch.Tensor
+    metric: DistanceType
+    metric_arg: float = 2.0
+    norms: Optional[torch.Tensor] = None
+
+    @property
+    def size(self) -> int:
+        return self.dataset.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.dataset.shape[1]
+
+
+def _needs_norms(metric: DistanceType) -> bool:
+    return metric in (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
+                      DistanceType.CosineExpanded)
+
+
+def build(dataset, metric="sqeuclidean", metric_arg: float = 2.0,
+          device=None) -> Index:
+    """Build a brute-force index on ``device`` (default: the CUDA card)."""
+    metric = resolve_metric(metric)
+    dataset = as_tensor(dataset, resolve_device(device))
+    norms = None
+    if _needs_norms(metric):
+        ds32 = dataset.float()
+        norms = (ds32 * ds32).sum(1)
+    return Index(dataset=dataset, metric=metric, metric_arg=metric_arg,
+                 norms=norms)
+
+
+def search(index: Index, queries, k: int,
+           prefilter=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN search on the index's device: (distances [m, k], indices
+    [m, k] int32), best-first. ``prefilter``: a Bitset or BitsetFilter
+    over dataset row ids. Slots without a valid candidate hold the metric's
+    sentinel distance and id -1."""
+    dev = index.dataset.device
+    queries = as_tensor(queries, dev)
+    n = index.size
+    if not 0 < k <= n:
+        raise ValueError(f"k={k} out of range for dataset size {n}")
+    filt = as_filter(prefilter)
+    keep = None
+    bits = getattr(filt, "bitset", None)
+    if bits is not None:
+        keep = filter_keep(bits.bits.to(dev), bits.n_bits,
+                           torch.arange(n, device=dev),
+                           out_of_range=getattr(filt, "out_of_range", "drop"))
+    metric = index.metric
+    sentinel = sentinel_for(metric)
+    if metric in _FUSED_KIND and k <= fused_topk.K_MAX:
+        kind = _FUSED_KIND[metric]
+        out_d, out_i = fused_topk.fused_knn_topk(
+            queries, index.dataset, int(k), metric_kind=kind,
+            norms=index.norms if kind != fused_topk.IP else None, keep=keep)
+        if metric == DistanceType.InnerProduct:
+            out_d = -out_d
+        elif metric == DistanceType.L2SqrtExpanded:
+            out_d = torch.sqrt(torch.clamp_min(out_d, 0.0))
+        return torch.where(out_i < 0, sentinel, out_d), out_i
+    return _search_blocks(index, queries, int(k), keep, sentinel)
+
+
+def _search_blocks(index: Index, queries: torch.Tensor, k: int,
+                   keep: Optional[torch.Tensor], sentinel: float):
+    """Plain distance blocks merged into a running top-k."""
+    metric = index.metric
+    q = queries.float()
+
+    def block(c0: int, c1: int) -> torch.Tensor:
+        xb = index.dataset[c0:c1].float()
+        if metric in _EXPANDED:
+            return _expanded_path(q, xb, metric)
+        return _block_distance(q, xb, metric, float(index.metric_arg))
+
+    return blocked_topk(block, index.size, k,
+                        select_min=is_min_close(metric), sentinel=sentinel,
+                        keep=keep)
+
+
+def knn(queries, dataset, k: int, metric="sqeuclidean",
+        metric_arg: float = 2.0, prefilter=None,
+        device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-shot exact KNN on ``device`` (default: the CUDA card)."""
+    return search(build(dataset, metric, metric_arg, device=device), queries,
+                  k, prefilter=prefilter)
+
+
+def save(path: str, index: Index) -> None:
+    arrays = {"dataset": index.dataset.cpu().numpy()}
+    if index.norms is not None:
+        arrays["norms"] = index.norms.cpu().numpy()
+    write_index_file(path, "brute_force", _SERIAL_VERSION,
+                     {"metric": int(index.metric),
+                      "metric_arg": index.metric_arg}, arrays)
+
+
+def load(path: str, device=None) -> Index:
+    dev = resolve_device(device)
+    _, meta, arrays = read_index_file(path, "brute_force")
+    return Index(
+        dataset=as_tensor(arrays["dataset"], dev),
+        metric=DistanceType(meta["metric"]),
+        metric_arg=meta["metric_arg"],
+        norms=(as_tensor(arrays["norms"], dev) if "norms" in arrays
+               else None),
+    )

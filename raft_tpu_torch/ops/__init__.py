@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``), each beside its plain
+PyTorch version in the same module:
+
+    fused_topk.fused_knn_topk      brute-force distance + top-k
+                                   (replaces raft_tpu/ops/fused_topk.py
+                                   _fused_kernel, exact arm)
+    ivf_scan.ivf_list_scan_topk    IVF list scan + per-list top-k
+                                   (replaces raft_tpu/ops/ivf_scan.py
+                                   _scan_kernel, float storage, exact)
+
+Sources live in ``csrc/``; ``_build`` compiles each with nvcc into a shared
+library with a plain C interface at first use and loads it with ctypes.
+Nothing is built or launched when a module is imported.
+"""

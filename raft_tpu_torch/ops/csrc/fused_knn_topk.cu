@@ -1,0 +1,104 @@
+// fused_knn_topk — brute-force distance + per-chunk top-k on Hopper.
+//
+// Replaces raft_tpu/ops/fused_topk.py:_fused_kernel (exact arm). Grid: one
+// block per (64-query tile, row chunk), query tiles fastest so the blocks
+// reading one chunk of rows run together and share it through L2. Each
+// block streams its chunk through shared memory (scan_topk.cuh) and writes
+// its queries' exact top-k to columns [chunk * k, chunk * k + k) of the
+// [m, n_chunks * k] candidate buffer, which the caller merges.
+//
+// Bound on the H100: operations, counted as chip_smoke.py counts them. At
+// 1,000 queries x 1M rows x 128 dims in f32 the dots are 256 GFLOP, 3.82 ms
+// at the f32 CUDA cores' 67 TFLOP/s, against ~0.52 GB of inputs and
+// outputs (0.15 ms at 3.35 TB/s). This first version runs the dots on those
+// cores with a 4 x 4 register micro tile fed by 16-byte shared-memory
+// loads; bf16 operands are widened to f32 (exact products), so for them
+// the tensor cores (wgmma) are the next step. PERF.md splits its time by
+// stage (staging, dots, top-k selection).
+#include "scan_topk.cuh"
+
+using namespace rtt;
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+fused_knn_topk_kernel(const float* __restrict__ queries,
+                      const float* __restrict__ qaux,
+                      const T* __restrict__ x,
+                      const float* __restrict__ norms,
+                      const int* __restrict__ keep, int m, int n, int d,
+                      int k, int chunk_rows, int n_chunks, int n_qtiles,
+                      int metric, int round_rows, float* __restrict__ out_d,
+                      int* __restrict__ out_i) {
+  __shared__ Tiles t;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  float* topd = reinterpret_cast<float*>(dyn);
+  int* topp = reinterpret_cast<int*>(topd + QT * k);
+
+  const int qt = blockIdx.x % n_qtiles;
+  const int ch = blockIdx.x / n_qtiles;
+  const int q0 = qt * QT;
+  if (threadIdx.x < QT) {
+    const int q = q0 + threadIdx.x;
+    t.qidx[threadIdx.x] = q < m ? q : -1;
+  }
+  const int p_begin = ch * chunk_rows;
+  const int p_end = min(n, p_begin + chunk_rows);
+  __syncthreads();
+  scan_topk<T>(t, topd, topp, queries, qaux, x, norms, keep, p_begin, p_end,
+               d, k, metric, round_rows != 0);
+  __syncthreads();
+
+  const size_t width = (size_t)n_chunks * k;
+  for (int e = threadIdx.x; e < QT * k; e += NTHREADS) {
+    const int q = q0 + e / k;
+    if (q >= m) continue;
+    const size_t o = (size_t)q * width + (size_t)ch * k + e % k;
+    const float dv = topd[e];
+    out_d[o] = dv;
+    out_i[o] = isinf(dv) ? -1 : topp[e];
+  }
+}
+
+template <typename T>
+static int launch(const float* queries, const float* qaux, const T* x,
+                  const float* norms, const int* keep, int m, int n, int d,
+                  int k, int chunk_rows, int n_chunks, int metric,
+                  int round_rows, float* out_d, int* out_i,
+                  cudaStream_t stream) {
+  const int n_qtiles = (m + QT - 1) / QT;
+  const size_t smem = topk_smem_bytes(k);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_knn_topk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_knn_topk_kernel<T><<<n_qtiles * n_chunks, NTHREADS, smem, stream>>>(
+      queries, qaux, x, norms, keep, m, n, d, k, chunk_rows, n_chunks,
+      n_qtiles, metric, round_rows, out_d, out_i);
+  return (int)cudaGetLastError();
+}
+
+// queries [m, d] f32; qaux [m] f32 (null for IP); x [n, d] f32 or bf16
+// (x_bf16); norms [n] f32 (null for IP); keep [n] int32 or null;
+// out_d / out_i [m, n_chunks * k]. Returns a cudaError_t code.
+extern "C" int fused_knn_topk(const void* queries, const void* qaux,
+                              const void* x, int x_bf16, const void* norms,
+                              const void* keep, int m, int n, int d, int k,
+                              int chunk_rows, int n_chunks, int metric,
+                              int round_rows, void* out_d, void* out_i,
+                              void* stream) {
+  if (k < 1 || k > KMAX || m < 1 || n < 1 || d < 1 || chunk_rows < 1 ||
+      n_chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  const auto* q = static_cast<const float*>(queries);
+  const auto* qa = static_cast<const float*>(qaux);
+  const auto* xn = static_cast<const float*>(norms);
+  const auto* kp = static_cast<const int*>(keep);
+  auto* od = static_cast<float*>(out_d);
+  auto* oi = static_cast<int*>(out_i);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return launch(q, qa, static_cast<const __nv_bfloat16*>(x), xn, kp, m, n,
+                  d, k, chunk_rows, n_chunks, metric, 0, od, oi, s);
+  return launch(q, qa, static_cast<const float*>(x), xn, kp, m, n, d, k,
+                chunk_rows, n_chunks, metric, round_rows, od, oi, s);
+}
