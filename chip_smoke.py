@@ -6,37 +6,55 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device  — a CUDA card is required; prints the card's name and power
              limit as nvidia-smi reports them;
-2. build   — compiles every CUDA kernel of the main path with nvcc, one
-             process per library, all at once: each kernel whole, and
-             again with only its first stages (for the stage timings);
+2. build   — compiles every CUDA kernel with nvcc, one process per
+             library, all at once: the four kernels whole, and the two
+             IVF-Flat-path kernels again with only their first stages (for
+             the stage timings);
 3. parity  — holds each kernel against its plain PyTorch version on the
              card, first on small ragged shapes (lists shorter than k, a
-             keep filter, all three metrics, f32 and bf16), then at the
-             main path's own shapes;
-4. main path — IVF-Flat on 1,000,000 x 128 f32 SIFT-like rows made on the
-             card from a seed: build with n_lists=1024, search 10,000
-             queries with n_probes=64 and k=10, recall@10 against the
-             port's exact brute force on 1,000 queries (>= 0.90), QPS as
-             the median of 5 timed batches after a warm-up, and a
-             profiler breakdown of one batch; every kernel must have
-             launched during the main path's run;
-5. report  — each kernel timed at the main path's shapes beside its plain
-             version and its bound, and split by stage (the staging loads
-             and epilogue, the dots, the top-k selection: the builds with
-             fewer stages timed on the same inputs); then the nvidia-smi
-             line, one JSON line of per-kernel numbers, and last the
-             result line.
+             keep filter, all metrics, f32 and bf16; for the nn-descent
+             join C < K, K = 1, K = 128, d off a multiple of 4 and
+             duplicate ids; for the beam step both arms, emitted
+             candidates, m off any tile and masked parents), then at the
+             main paths' own shapes; then a small IVF-Flat and a small
+             CAGRA search on the card against the same index searched on
+             the CPU;
+4. IVF-Flat path — on 1,000,000 x 128 f32 SIFT-like rows made on the card
+             from a seed: build with n_lists=1024, search 10,000 queries
+             with n_probes=64 and k=10, recall@10 against the port's exact
+             brute force on 1,000 queries (>= 0.90), QPS as the median of
+             5 timed batches after a warm-up, and a profiler breakdown of
+             one batch;
+5. CAGRA path — on the same rows: build with nn-descent
+             (intermediate_graph_degree=64, at most 80 iterations) ->
+             optimize (graph_degree=32) -> packed inline layout, each part
+             timed; search the 10,000 queries with n_seeds=64,
+             max_iterations=15 and k=10; recall@10 as above (>= 0.90), QPS
+             and a profile as above; the nn-descent graph's recall on 1,000
+             sampled nodes, and the build and recall at nn-descent's
+             default of 20 iterations (reported, not gated).
+             Every kernel of a path must have launched during that path's
+             run (counts set to 0 just before it, read just after);
+6. report  — each kernel timed at its path's shapes beside its plain
+             version and its bound (the IVF-Flat kernels also by stage:
+             staging loads and epilogue, dots, top-k selection); then the
+             nvidia-smi line, one JSON line of per-kernel numbers, and last
+             the result line.
 
-Tolerances: kernel and plain version both sum exact products in f32, in
-different orders, so distances agree to 1e-4 relative (plus 1e-4
-absolute) and ids agree exactly wherever a distance is not within that
-tolerance of its neighbour in the row (a tie).
+Tolerances: the brute-force, list-scan and join kernels and their plain
+versions sum f32 products in different orders, so distances agree to
+1e-4 relative plus an absolute term (1e-4; for the join 2e-6 of the
+expanded form's terms, ||q||^2 + ||c||^2, whose rounding it inherits),
+and ids agree exactly wherever a distance is not within that tolerance of
+its neighbour in the row (a tie). The beam step and its plain version
+round and sum in one fixed order, so they must agree bit for bit.
 
 The script imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -50,6 +68,9 @@ H100_F32_FLOPS = 67e12                 # f32 on the CUDA cores
 H100_BF16_FLOPS = 989e12               # bf16 tensor cores, dense
 RTOL = ATOL = 1e-4
 RECALL_FLOOR = 0.90
+# nn-descent iterations of the CAGRA build: at the reference's default of
+# 20, the sampled join has not converged at 1M rows (PERF.md, PR 5)
+NN_DESCENT_NITER = 80
 
 
 class SmokeFailure(RuntimeError):
@@ -81,10 +102,17 @@ def sift_like(n: int, d: int, seed: int, device, intrinsic: int = 16,
     return out
 
 
-def compare(name, kd, ki, pd, pi) -> dict:
+def compare(name, kd, ki, pd, pi, atol=ATOL, join=False) -> dict:
     """Kernel output (kd, ki) against the plain version's (pd, pi); raises
-    beyond tolerance. Returns the max distance difference and the number
-    of tie-free keys compared."""
+    beyond tolerance. ``atol`` may be a per-row tensor. Rows are sorted,
+    so a tie is a distance within tolerance of its neighbour in the plain
+    row. For the local join (``join``), whose errors are those of the
+    expanded form and whose rows end at K, a tie is also one in the
+    kernel's row, and in the last column, where the rival past the row's
+    end is unseen, two different ids at distances within tolerance of
+    each other.
+    Returns the max distance difference and the number of tie-free keys
+    compared."""
     kd = kd.reshape(-1, kd.shape[-1]).float()
     pd = pd.reshape(-1, pd.shape[-1]).float()
     ki = ki.reshape(kd.shape)
@@ -100,23 +128,47 @@ def compare(name, kd, ki, pd, pi) -> dict:
     diff = (kd - pd).abs()
     diff = torch.where(fin, diff, torch.zeros_like(diff))
     max_err = float(diff.max()) if fin.any() else 0.0
-    tol = ATOL + RTOL * pd.abs().where(fin, torch.zeros_like(pd))
+    if isinstance(atol, torch.Tensor):
+        atol = atol.reshape(-1, 1).float()
+    tol = atol + RTOL * pd.abs().where(fin, torch.zeros_like(pd))
     if bool((diff > tol).any()):
         raise SmokeFailure(f"{name}: distances differ by up to {max_err} "
                            f"(tolerance 1e-4 relative)")
-    # tie-free keys: rows are sorted, so a tie is with a neighbour
-    gap = (pd[:, 1:] - pd[:, :-1]).abs()
     tied = torch.zeros_like(fin)
-    tied[:, 1:] |= gap <= tol[:, 1:]
-    tied[:, :-1] |= gap <= tol[:, :-1]
+    for rd in ((pd, kd) if join else (pd,)):
+        gap = (rd[:, 1:] - rd[:, :-1]).abs()
+        tied[:, 1:] |= gap <= tol[:, 1:]
+        tied[:, :-1] |= gap <= tol[:, :-1]
+    if join:
+        tied[:, -1] |= (ki[:, -1] != pi[:, -1]) & (diff[:, -1] <= tol[:, -1])
     keyed = fin & ~tied
     n_keyed = int(keyed.sum())
-    n_differ = int((ki[keyed] != pi[keyed]).sum())
+    bad = keyed & (ki != pi)
+    n_differ = int(bad.sum())
     log(f"  {name}: max |d| diff {max_err:.3g}, ids differ on {n_differ} "
         f"of {n_keyed} tie-free keys")
     if n_differ:
-        raise SmokeFailure(f"{name}: ids differ on tie-free keys")
+        r, c = [int(v) for v in bad.nonzero()[0]]
+        raise SmokeFailure(
+            f"{name}: ids differ on tie-free keys, e.g. row {r} column {c}: "
+            f"kernel {kd[r, max(c - 1, 0):c + 2].tolist()} "
+            f"{ki[r, max(c - 1, 0):c + 2].tolist()}, plain "
+            f"{pd[r, max(c - 1, 0):c + 2].tolist()} "
+            f"{pi[r, max(c - 1, 0):c + 2].tolist()}")
     return {"max_abs_err": max_err, "tie_free_keys": n_keyed}
+
+
+def join_atol(q, data, norms, qn, ip) -> torch.Tensor:
+    """Per-row absolute tolerance of the local join: its f32 dots are
+    summed in other orders by kernel and plain version, so they differ by
+    rounding of the terms — ||q||^2 + ||c||^2 for the expanded L2 form,
+    ||q|| ||c|| for inner product — not of the (much smaller) distance:
+    2e-6 of that scale (about 16 ulps of f32)."""
+    cmax = norms.max() if norms is not None else (data * data).sum(1).max()
+    if ip:
+        qq = (q.float() * q.float()).sum(1)
+        return 2e-6 * torch.sqrt(qq * cmax) + ATOL
+    return 2e-6 * (qn + cmax) + ATOL
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -159,9 +211,10 @@ def phase_build() -> None:
 
     stage_set = (_build.FULL, 1, 0)
     secs = _build.build_all(stage_set=stage_set)
-    log(f"build: {len(_build.KERNELS)} kernels x {len(stage_set)} stage sets, "
-        f"{len(_build.KERNELS) * len(stage_set)} nvcc at once, in "
-        f"{secs:.2f} s")
+    n_libs = sum(len(stage_set) if k in _build.STAGED else 1
+                 for k in _build.KERNELS)
+    log(f"build: {len(_build.KERNELS)} kernels ({len(_build.STAGED)} also "
+        f"by stage), {n_libs} nvcc at once, in {secs:.2f} s")
     for name, out in _build.BUILD_LOG.items():
         regs = [ln.strip() for ln in out.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -220,11 +273,115 @@ def phase_small_parity(dev) -> None:
                 f"keep={kp is not None}", kd, ki, pd, pi)
 
 
+def compare_exact(name, outs_k, outs_p) -> None:
+    """Kernel outputs against the plain version's: every tensor equal."""
+    diff = [i for i, (a, b) in enumerate(zip(outs_k, outs_p))
+            if a.shape != b.shape or not torch.equal(a, b)]
+    log(f"  {name}: {len(outs_k)} outputs, "
+        f"{'all equal' if not diff else f'outputs {diff} differ'}")
+    if diff or len(outs_k) != len(outs_p):
+        raise SmokeFailure(f"{name}: kernel and plain version differ")
+
+
+def join_case(g, dev, B, C, d, K, n):
+    """A local-join input with every hazard planted: empty candidate
+    slots, an in-row duplicate, a candidate already on the list, short
+    lists, and one row with no valid candidate."""
+    x = torch.randn(n, d, generator=g, device=dev)
+    q = torch.randn(B, d, generator=g, device=dev)
+    cand = torch.randint(-1, n, (B, C), generator=g, device=dev,
+                         dtype=torch.int32)
+    cur_i = torch.sort(torch.randint(0, n, (B, K), generator=g, device=dev,
+                                     dtype=torch.int32), 1).values
+    rep = torch.zeros_like(cur_i, dtype=torch.bool)
+    rep[:, 1:] = cur_i[:, 1:] == cur_i[:, :-1]
+    cur_i[rep] = -1
+    live = torch.randint(1, K + 1, (B, 1), generator=g, device=dev)
+    cur_i[torch.arange(K, device=dev)[None, :] >= live] = -1
+    if C >= 2:
+        cand[:, 1] = cand[:, 0]
+    if C >= 3:
+        cand[:, 2] = cur_i[:, 0]
+    cand[-1] = -1
+    norms = (x * x).sum(1)
+    qn = (q * q).sum(1)
+    cur_d = torch.rand(B, K, generator=g, device=dev) * 4.0 * d
+    cur_d[cur_i < 0] = float("inf")
+    return q, cand, x, norms, cur_d, cur_i, qn
+
+
+def phase_small_parity_graph(dev) -> None:
+    from raft_tpu_torch.ops import beam_step, graph_join
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    log("parity (small, ragged): graph_local_join")
+    for B, C, d, K, ip, n in [(24, 37, 32, 8, False, 300),
+                              (24, 37, 32, 8, True, 300),
+                              (9, 5, 16, 32, False, 200),
+                              (24, 37, 30, 8, False, 300),
+                              (70, 150, 64, 64, False, 900),
+                              (20, 40, 16, 1, False, 300),
+                              (20, 300, 16, 128, True, 2000)]:
+        q, cand, x, norms, cur_d, cur_i, qn = join_case(g, dev, B, C, d, K, n)
+        kw = dict(qn=qn, ip=ip)
+        kd, ki = graph_join.graph_local_join(q, cand, x, norms, cur_d, cur_i,
+                                             **kw)
+        pd, pi = graph_join.graph_local_join_plain(q, cand, x, norms, cur_d,
+                                                   cur_i, **kw)
+        compare(f"graph_local_join B={B} C={C} d={d} K={K} ip={ip}", kd, ki,
+                pd, pi, atol=join_atol(q, x, norms, qn, ip), join=True)
+
+    log("parity (small, ragged): beam_merge_step")
+    for L, C, m, width, window in [(16, 32, 128, 4, 2), (12, 20, 100, 3, 2),
+                                   (16, 1, 77, 1, 3), (2, 24, 128, 2, 1)]:
+        bd = torch.sort(torch.rand(m, L, generator=g, device=dev), 1).values
+        bi = torch.randint(0, 5000, (m, L), generator=g, device=dev,
+                           dtype=torch.int32)
+        be = torch.randint(0, 2, (m, L), generator=g, device=dev,
+                           dtype=torch.int32)
+        cd = torch.rand(m, C, generator=g, device=dev)
+        ci = torch.randint(-1, 5000, (m, C), generator=g, device=dev,
+                           dtype=torch.int32)
+        r = min(C, L, 3)
+        ci[:, :r], cd[:, :r] = bi[:, :r], bd[:, :r]     # duplicate ids
+        kw = dict(cand_d=cd, cand_i=ci, width=width, window=window)
+        compare_exact(f"beam_merge_step pre-scored L={L} C={C} m={m} "
+                      f"width={width} window={window}",
+                      beam_step.beam_merge_step(bd, bi, be, **kw),
+                      beam_step.beam_merge_step_plain(bd, bi, be, **kw))
+    for deg, d, L, m, width, ip, emit, n in [
+            (8, 32, 16, 128, 2, False, False, 512),
+            (8, 32, 8, 90, 3, True, True, 512),
+            (16, 64, 16, 128, 4, False, True, 512),
+            (8, 36, 16, 64, 2, False, True, 512),
+            (4, 4, 16, 64, 4, False, False, 512),
+            (16, 256, 32, 300, 4, True, False, 1000)]:
+        _, o_norm, o_id, W = beam_step.packed_row_layout(deg, d, ip)
+        pack = torch.randint(-2**31, 2**31 - 1, (n, W), generator=g,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+        pack[:, o_id:o_id + deg] = torch.randint(
+            -1, n, (n, deg), generator=g, device=dev, dtype=torch.int32)
+        if not ip:
+            pack[:, o_norm:o_norm + deg] = (torch.rand(
+                n, deg, generator=g, device=dev) * 100).view(torch.int32)
+        qs = (torch.randn(m, d, generator=g, device=dev) * 0.05).to(
+            torch.bfloat16)
+        par = torch.randint(-1, n, (m, width), generator=g, device=dev,
+                            dtype=torch.int32)
+        bd = torch.full((m, L), float("inf"), device=dev)
+        bi = torch.full((m, L), -1, device=dev, dtype=torch.int32)
+        be = torch.zeros((m, L), device=dev, dtype=torch.int32)
+        kw = dict(qs=qs, nbr_pack=pack, parents=par, deg=deg, d=d,
+                  width=width, ip=ip, emit_cands=emit)
+        compare_exact(f"beam_merge_step packed deg={deg} d={d} L={L} m={m} "
+                      f"width={width} ip={ip} emit={emit}",
+                      beam_step.beam_merge_step(bd, bi, be, **kw),
+                      beam_step.beam_merge_step_plain(bd, bi, be, **kw))
+
+
 def phase_small_search(dev) -> None:
     """The whole search on a small index: the card's kernel path against
     the same index searched on the CPU (plain versions)."""
-    import dataclasses
-
     from raft_tpu_torch.neighbors import ivf_flat
 
     x = sift_like(20_000, 128, seed=3, device=dev)
@@ -241,6 +398,38 @@ def phase_small_search(dev) -> None:
     log("parity (small IVF-Flat search, card vs CPU):")
     compare("ivf_flat.search 20k x 128, 64 lists", kd.cpu(), ki.cpu(), pd,
             pi)
+
+
+def phase_small_cagra(dev) -> None:
+    """A small CAGRA build on the card through the user's entry point,
+    searched on the card (kernels) and, over the same graph, on the CPU
+    (plain versions): recall within 0.01 and most ids equal (one flipped
+    near-tie changes the beam's path, so whole searches are compared by
+    recall and overlap, not for equality)."""
+    from raft_tpu_torch.neighbors import brute_force, cagra
+
+    x = sift_like(20_000, 128, seed=5, device=dev)
+    q = sift_like(300, 128, seed=6, device=dev)
+    ix = cagra.build(cagra.IndexParams(
+        intermediate_graph_degree=64, graph_degree=32,
+        graph_build_algo=cagra.build_algo.NN_DESCENT), x, device=dev)
+    sp = cagra.SearchParams(n_seeds=64, max_iterations=15)
+    _, ki = cagra.search(sp, ix, q, 10)
+    cpu_ix = cagra.from_graph(x.cpu(), ix.graph.cpu(), ix.metric,
+                              device="cpu")
+    _, pi = cagra.search(sp, cpu_ix, q.cpu(), 10)
+    _, truth = brute_force.knn(q, x, 10, device=dev)
+    rk, rp = recall_of(ki, truth), recall_of(pi.to(dev), truth)
+    same = float((ki.cpu() == pi).float().mean())
+    log(f"parity (small CAGRA search, card vs CPU): 20k x 128, recall@10 "
+        f"{rk:.4f} card vs {rp:.4f} CPU, {100 * same:.1f}% of ids equal")
+    if abs(rk - rp) > 0.01 or same < 0.9:
+        raise SmokeFailure("small CAGRA search: card and CPU disagree")
+
+
+def recall_of(found, truth) -> float:
+    hits = (found.long()[:, :, None] == truth.long()[:, None, :]).any(2)
+    return float(hits.sum()) / truth.numel()
 
 
 def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
@@ -321,6 +510,7 @@ def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
         f"{[round(t * 1e3, 3) for t in times]}")
     profile_search(lambda: ivf_flat.search(sp, index, q, k))
     return {"captured": captured, "launches": launches, "build_s": build_s,
+            "x": x, "q": q, "truth": truth,
             "recall": rec, "qps": nq / med}
 
 
@@ -349,6 +539,26 @@ def profile_search(search) -> None:
         f"{100 * (1 - busy / wall_us):.1f}%")
     for key, t in rows[:8]:
         log(f"    {t / 1e3:9.3f} ms {100 * t / busy:5.1f}%  {key[:90]}")
+
+
+def device_ms(fn, symbol: str, reps: int) -> float:
+    """Mean device milliseconds of the kernels whose name holds
+    ``symbol`` per call of ``fn`` (torch.profiler), free of the host's
+    launch overhead that ``cuda_ms`` includes when a kernel is shorter
+    than its wrapper; None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    if ProfilerActivity.CUDA not in supported_activities():
+        return None
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages() if symbol in e.key)
+    return us / 1e3 / reps if us > 0 else None
 
 
 def stage_split(name: str, kern, full_ms: float) -> None:
@@ -480,6 +690,257 @@ def measure_knn(args, kw, launches) -> dict:
             "library_ms": lib_ms}
 
 
+def cagra_path(dev, x, q, truth, k=10) -> dict:
+    """CAGRA on the main path's rows: nn-descent build -> optimize ->
+    packed layout through ``cagra.build``, each part timed; one search of
+    the 10k queries, recall, QPS and a profile; the kernels' inputs
+    captured for the per-kernel measurements."""
+    from raft_tpu_torch.neighbors import cagra, nn_descent
+    from raft_tpu_torch.ops import beam_step, graph_join
+
+    join, beam = graph_join.graph_local_join, beam_step.beam_merge_step
+    captured, secs, packed_calls = {}, {}, [0]
+
+    def rec_join(*a, **kw):
+        # the last full-size block (the join's, not the init's)
+        if a[1].numel() >= captured.get("join_size", 0):
+            captured["join"] = (a, kw)
+            captured["join_size"] = a[1].numel()
+        return join(*a, **kw)
+
+    def rec_beam(*a, **kw):
+        if kw.get("qs") is not None:
+            packed_calls[0] += 1
+            if packed_calls[0] == 8:        # a step in mid-search
+                captured["beam"] = (a, kw)
+        return beam(*a, **kw)
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            captured[name] = out
+            return out
+        return run
+
+    patches = [(nn_descent, "graph_local_join", rec_join),
+               (cagra, "beam_merge_step", rec_beam),
+               (nn_descent, "build", timed("nn-descent", nn_descent.build)),
+               (cagra, "optimize", timed("optimize", cagra.optimize)),
+               (cagra, "_attach_inline", timed("pack", cagra._attach_inline))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    sp = cagra.SearchParams(n_seeds=64, max_iterations=15)
+    params = cagra.IndexParams(
+        intermediate_graph_degree=64, graph_degree=32,
+        graph_build_algo=cagra.build_algo.NN_DESCENT,
+        nn_descent_niter=NN_DESCENT_NITER)
+    try:
+        join.launches = beam.launches = 0
+        t0 = time.perf_counter()
+        index = cagra.build(params, x, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        join_build, beam_build = join.launches, beam.launches
+        out_d, out_i = cagra.search(sp, index, q, k)
+        torch.cuda.synchronize()
+        launches = {"graph_local_join": join.launches,
+                    "beam_merge_step": beam.launches}
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    log(f"CAGRA path: {x.shape[0]} x {x.shape[1]}, nn-descent (degree 64, "
+        f"{NN_DESCENT_NITER} iterations at most) -> graph_degree "
+        f"{index.graph_degree}, packed rows of {index.nbr_pack.shape[1]} "
+        f"words; build {build_s:.2f} s (nn-descent {secs['nn-descent']:.2f} "
+        f"s, optimize {secs['optimize']:.2f} s, pack {secs['pack']:.2f} s)")
+    log(f"  launches: graph_local_join {join_build} per build, "
+        f"beam_merge_step {launches['beam_merge_step'] - beam_build} per "
+        f"search of {q.shape[0]} queries")
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            raise SmokeFailure(f"{name} never launched on the CAGRA path")
+    if out_d.shape != (q.shape[0], k) or \
+            not bool(torch.isfinite(out_d).all()) or bool((out_i < 0).any()):
+        raise SmokeFailure("CAGRA search returned non-finite or missing "
+                           "neighbours")
+    rec = recall_of(out_i[:truth.shape[0]], truth)
+    log(f"  recall@{k} on {truth.shape[0]} queries vs exact brute force: "
+        f"{rec:.4f}")
+    if rec < RECALL_FLOOR:
+        raise SmokeFailure(f"CAGRA recall {rec:.4f} < {RECALL_FLOOR}")
+
+    cagra.search(sp, index, q, k)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        cagra.search(sp, index, q, k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    log(f"  search: {q.shape[0]} queries in {med * 1e3:.2f} ms (median of 5) "
+        f"-> {q.shape[0] / med:.1f} QPS; batches ms "
+        f"{[round(t * 1e3, 3) for t in times]}")
+    profile_search(lambda: cagra.search(sp, index, q, k))
+
+    # the nn-descent graph's own recall against the exact neighbours of
+    # 1,000 sampled nodes, and the same build at the reference's default
+    # of 20 iterations (reported, not gated)
+    from raft_tpu_torch.neighbors import brute_force
+
+    sample = torch.arange(0, x.shape[0], x.shape[0] // 1000, device=dev)
+    _, exact = brute_force.knn(x[sample], x, 65, device=dev)
+
+    def graph_recall(g):
+        g = g[sample].long()
+        return recall_of(g, exact[:, 1:g.shape[1] + 1])
+
+    g_rec = graph_recall(captured.pop("nn-descent").graph)
+    del captured["optimize"], captured["pack"]
+    # cagra.build at nn_descent_niter=20, its parts called one by one
+    t0 = time.perf_counter()
+    nd20 = nn_descent.build(nn_descent.IndexParams(
+        graph_degree=params.intermediate_graph_degree, max_iterations=20),
+        x, device=dev)
+    ix20 = cagra.from_graph(x, cagra.optimize(nd20.graph,
+                                              params.graph_degree),
+                            device=dev)
+    torch.cuda.synchronize()
+    b20 = time.perf_counter() - t0
+    _, i20 = cagra.search(sp, ix20, q[:truth.shape[0]], k)
+    log(f"  nn-descent graph recall@64 on 1000 sampled nodes: {g_rec:.4f}; "
+        f"at 20 iterations (the reference's default, not gated): graph "
+        f"recall@64 {graph_recall(nd20.graph):.4f}, build {b20:.2f} s, "
+        f"search recall@{k} {recall_of(i20, truth):.4f}")
+    del ix20, nd20
+    return {"captured": captured, "launches": launches, "build_s": build_s,
+            "secs": secs, "recall": rec, "qps": q.shape[0] / med,
+            "graph_recall": g_rec}
+
+
+def measure_join(args, kw, launches) -> dict:
+    from raft_tpu_torch.ops import graph_join
+
+    q, cand, data, norms, cur_d, cur_i = args
+    B, C = cand.shape
+    K = cur_d.shape[1]
+    d = data.shape[1]
+    log(f"kernel graph_local_join at the main path's shapes: block of {B} "
+        f"rows, C={C} candidates, K={K}, d={d}, data {tuple(data.shape)}")
+    fn = graph_join.graph_local_join
+    before = fn.launches
+
+    def kern():
+        return graph_join.graph_local_join(*args, **kw)
+
+    def plain():
+        return graph_join.graph_local_join_plain(*args, **kw)
+
+    kd, ki = kern()
+    pd, pi = plain()
+    err = compare("graph_local_join (main-path shapes)", kd, ki, pd, pi,
+                  atol=join_atol(q, data, norms, kw["qn"], kw["ip"]),
+                  join=True)
+    call_ms = cuda_ms(kern, reps=10)
+    dev_ms = device_ms(kern, "graph_local_join_kernel", reps=10)
+    ms = call_ms if dev_ms is None else dev_ms
+    plain_ms = cuda_ms(plain, reps=2)
+    fn.launches = before                        # measurement launches
+
+    # the least time for this block: node rows, candidate ids and lists
+    # read once, every referenced data row and norm read once, the merged
+    # lists written once; dots for the valid candidates
+    valid = cand[cand >= 0].long()
+    rows = int(torch.unique(valid).numel())
+    bytes_ = (B * d * 4 + B * 4 + B * C * 4 + rows * (d * 4 + 4)
+              + 2 * B * K * 8)
+    flops = 2.0 * d * valid.numel()
+    t_bytes = bytes_ / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    gather = valid.numel() * d * 4
+    log(f"  graph_local_join: {ms:.3f} ms kernel on the device "
+        f"({call_ms:.3f} ms a call, launch included), {plain_ms:.3f} ms "
+        f"plain; {flops / 1e9:.2f} GFLOP f32, {bytes_ / 1e9:.3f} GB ({rows} "
+        f"distinct data rows) -> bound {max(t_bytes, t_ops):.3f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}); a row read per "
+        f"reference would be {gather / 1e9:.2f} GB = "
+        f"{gather / H100_HBM_BYTES_PER_S * 1e3:.3f} ms")
+    return {"name": "graph_local_join", "route": "cuda",
+            "source": "raft_tpu_torch/ops/csrc/graph_local_join.cu",
+            "replaces": "raft_tpu/ops/graph_join.py:106",
+            "launches": launches, "max_abs_err": err["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def measure_beam(args, kw, launches) -> dict:
+    from raft_tpu_torch.ops import beam_step
+
+    buf_d = args[0]
+    m, L = buf_d.shape
+    qs, pack, par = kw["qs"], kw["nbr_pack"], kw["parents"]
+    deg, d, width, ip = kw["deg"], kw["d"], kw["width"], kw["ip"]
+    log(f"kernel beam_merge_step at the main path's shapes: m={m}, L={L}, "
+        f"width={width}, deg={deg}, d={d}, packed rows {tuple(pack.shape)}")
+    fn = beam_step.beam_merge_step
+    before = fn.launches
+
+    def kern():
+        return beam_step.beam_merge_step(*args, **kw)
+
+    def plain():
+        return beam_step.beam_merge_step_plain(*args, **kw)
+
+    outs_k, outs_p = kern(), plain()
+    compare_exact("beam_merge_step (main-path shapes)", outs_k, outs_p)
+    fin = torch.isfinite(outs_p[0])
+    err = float((outs_k[0] - outs_p[0]).abs()[fin].max()) if fin.any() \
+        else 0.0
+    call_ms = cuda_ms(kern, reps=20)
+    dev_ms = device_ms(kern, "beam_step_kernel", reps=20)
+    ms = call_ms if dev_ms is None else dev_ms
+    plain_ms = cuda_ms(plain, reps=3)
+    fn.launches = before                        # measurement launches
+
+    # the least time: buffers in and out, the query, the parents, and the
+    # used words (codes, norms, ids) of every distinct parent row once;
+    # two operations per byte product for each (query, valid parent)
+    dw, _, _, _ = beam_step.packed_row_layout(deg, d, ip)
+    used = dw + deg * (1 if ip else 2)
+    rows = int(torch.unique(par[par >= 0]).numel())
+    n_par = int((par >= 0).sum())
+    bytes_ = (2 * m * L * 12 + m * d * 2 + 2 * m * width * 4
+              + rows * used * 4)
+    flops = 2.0 * deg * d * n_par
+    t_bytes = bytes_ / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    gather = n_par * pack.shape[1] * 4
+    log(f"  beam_merge_step: {ms:.4f} ms kernel on the device "
+        f"({call_ms:.4f} ms a call, launch included), {plain_ms:.3f} ms "
+        f"plain; {flops / 1e9:.2f} GFLOP (bf16 products), "
+        f"{bytes_ / 1e9:.4f} GB "
+        f"({rows} distinct parent rows of {n_par}) -> bound "
+        f"{max(t_bytes, t_ops):.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}); a row read per "
+        f"(query, parent) would be {gather / 1e9:.3f} GB = "
+        f"{gather / H100_HBM_BYTES_PER_S * 1e3:.4f} ms")
+    return {"name": "beam_merge_step", "route": "cuda",
+            "source": "raft_tpu_torch/ops/csrc/cagra_beam_step.cu",
+            "replaces": "raft_tpu/ops/beam_step.py:192",
+            "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -497,18 +958,28 @@ def main() -> int:
         smi = phase_device()
         phase_build()
         phase_small_parity(dev)
+        phase_small_parity_graph(dev)
         phase_small_search(dev)
+        phase_small_cagra(dev)
         res = main_path(dev)
-        cap = res["captured"]
+        cres = cagra_path(dev, res.pop("x"), res.pop("q"), res.pop("truth"))
+        cap, ccap = res["captured"], cres["captured"]
         kernels = [measure_ivf(*cap["ivf_list_scan_topk"],
                                res["launches"]["ivf_list_scan_topk"]),
                    measure_knn(*cap["fused_knn_topk"],
-                               res["launches"]["fused_knn_topk"])]
+                               res["launches"]["fused_knn_topk"]),
+                   measure_join(*ccap["join"],
+                                cres["launches"]["graph_local_join"]),
+                   measure_beam(*ccap["beam"],
+                                cres["launches"]["beam_merge_step"])]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"main path: build {res['build_s']:.3f} s, QPS {res['qps']:.1f}, "
-        f"recall@10 {res['recall']:.4f}; total {time.perf_counter() - t_start:.1f} s")
+    log(f"IVF-Flat path: build {res['build_s']:.3f} s, QPS {res['qps']:.1f}, "
+        f"recall@10 {res['recall']:.4f}")
+    log(f"CAGRA path: build {cres['build_s']:.3f} s, QPS {cres['qps']:.1f}, "
+        f"recall@10 {cres['recall']:.4f}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ import torch
 
 from raft_tpu_torch.core.resources import as_tensor, resolve_device
 from raft_tpu_torch.distance.types import resolve_metric
-from raft_tpu_torch.neighbors import brute_force, ivf_flat
+from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, nn_descent
 
 
 def ivf_flat_index_from_numpy(arrays: Mapping[str, np.ndarray], metric,
@@ -58,3 +58,24 @@ def brute_force_index_from_numpy(arrays: Mapping[str, np.ndarray], metric,
         norms=None if norms is None else as_tensor(norms, dev,
                                                    torch.float32),
     )
+
+
+def cagra_index_from_numpy(arrays: Mapping[str, np.ndarray], metric,
+                           device=None, inline_codes: bool = True
+                           ) -> cagra.Index:
+    """A CAGRA index from the reference's ``dataset`` and ``graph``; the
+    packed inline layout is rebuilt here, as the reference's ``load``
+    rebuilds it."""
+    return cagra.from_graph(arrays["dataset"], arrays["graph"], metric,
+                            inline_codes=inline_codes,
+                            device=resolve_device(device))
+
+
+def nn_descent_index_from_numpy(arrays: Mapping[str, np.ndarray],
+                                device=None) -> nn_descent.Index:
+    """An nn-descent graph from the reference's ``graph`` and
+    ``distances``."""
+    dev = resolve_device(device)
+    return nn_descent.Index(
+        graph=as_tensor(arrays["graph"], dev, torch.int32),
+        distances=as_tensor(arrays["distances"], dev, torch.float32))

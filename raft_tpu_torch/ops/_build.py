@@ -7,11 +7,11 @@ unchanged one is reused. Building happens at first use or through
 :func:`build_all`, which starts one nvcc per library at once. Nothing
 here runs at import time.
 
-A kernel can also be built with only its first stages (``scan_topk.cuh``
-``RTT_STAGES``: 0 = the staging loads and the epilogue, 1 = plus the
-dots, 2 = plus the top-k selection, the whole kernel). The partial
-builds exist to split a kernel's time by stage; inside
-:func:`only_stages` the wrappers launch them instead of the whole
+A kernel of ``STAGED`` can also be built with only its first stages
+(``scan_topk.cuh`` ``RTT_STAGES``: 0 = the staging loads and the
+epilogue, 1 = plus the dots, 2 = plus the top-k selection, the whole
+kernel). The partial builds exist to split a kernel's time by stage;
+inside :func:`only_stages` the wrappers launch them instead of the whole
 kernel, and their outputs are not results.
 """
 
@@ -30,7 +30,10 @@ from typing import Dict, Iterable, Tuple
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_kernels"
-KERNELS = ("fused_knn_topk", "ivf_list_scan_topk")
+KERNELS = ("fused_knn_topk", "ivf_list_scan_topk", "graph_local_join",
+           "cagra_beam_step")
+# the kernels whose source takes RTT_STAGES (the others build whole only)
+STAGED = ("fused_knn_topk", "ivf_list_scan_topk")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -101,10 +104,12 @@ def _finish(name: str, path: Path, tmp, proc,
 
 def build_all(names: Iterable[str] = KERNELS,
               stage_set: Iterable[int] = (FULL,)) -> float:
-    """Build every named kernel at each of ``stage_set``, one nvcc per
-    library, all at once. Returns the wall seconds."""
+    """Build every named kernel at each of ``stage_set`` (a kernel not in
+    ``STAGED`` whole only), one nvcc per library, all at once. Returns
+    the wall seconds."""
     t0 = time.perf_counter()
-    started = {(n, st): _start(n, st) for n in names for st in stage_set}
+    started = {(n, st): _start(n, st) for n in names
+               for st in (stage_set if n in STAGED else (FULL,))}
     for (n, st), (path, tmp, proc) in started.items():
         _finish(n, path, tmp, proc, st)
     return time.perf_counter() - t0
@@ -113,10 +118,10 @@ def build_all(names: Iterable[str] = KERNELS,
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built at first use (with the stages
     that :func:`only_stages` selects, by default the whole kernel)."""
-    key = (name, _stages)
+    key = (name, _stages if name in STAGED else FULL)
     lib = _LOADED.get(key)
     if lib is None:
-        path = _finish(name, *_start(*key), _stages)
+        path = _finish(name, *_start(*key), key[1])
         lib = ctypes.CDLL(str(path))
         lib.rtt_error_string.argtypes = [ctypes.c_int]
         lib.rtt_error_string.restype = ctypes.c_char_p
