@@ -8,46 +8,62 @@ Phases, each of which fails the run (non-zero exit, no result line):
              limit as nvidia-smi reports them;
 2. build   — compiles every CUDA kernel with nvcc, one process per
              library, all at once: the four kernels whole, and the two
-             IVF-Flat-path kernels again with only their first stages (for
-             the stage timings);
+             scan kernels again with only their first stages (for the
+             stage timings);
 3. parity  — holds each kernel against its plain PyTorch version on the
              card, first on small ragged shapes (lists shorter than k, a
-             keep filter, all metrics, f32 and bf16; for the nn-descent
-             join C < K, K = 1, K = 128, d off a multiple of 4 and
-             duplicate ids; for the beam step both arms, emitted
+             keep filter, all metrics; f32 x f32, f32 x bf16 and bf16 x
+             bf16 operands for kernels 1 and 2; kernel 2's int8 arm with
+             residual queries, L2 and inner product, k from 1 to 256, rot
+             20 to 128, bf16 and f32 operands, empty slots; for the
+             nn-descent join C < K, K = 1, K = 128, d off a multiple of 4
+             and duplicate ids; for the beam step both arms, emitted
              candidates, m off any tile and masked parents), then at the
-             main paths' own shapes; then a small IVF-Flat and a small
-             CAGRA search on the card against the same index searched on
-             the CPU;
+             paths' own shapes; then a small IVF-Flat, a small IVF-PQ (L2
+             and inner product) and a small CAGRA search on the card
+             against the same index searched on the CPU;
 4. IVF-Flat path — on 1,000,000 x 128 f32 SIFT-like rows made on the card
              from a seed: build with n_lists=1024, search 10,000 queries
              with n_probes=64 and k=10, recall@10 against the port's exact
              brute force on 1,000 queries (>= 0.90), QPS as the median of
              5 timed batches after a warm-up, and a profiler breakdown of
              one batch;
-5. CAGRA path — on the same rows: build with nn-descent
+5. CAGRA paths — on the same rows: (a) nn-descent
              (intermediate_graph_degree=64, at most 80 iterations) ->
-             optimize (graph_degree=32) -> packed inline layout, each part
-             timed; search the 10,000 queries with n_seeds=64,
-             max_iterations=15 and k=10; recall@10 as above (>= 0.90), QPS
-             and a profile as above; the nn-descent graph's recall on 1,000
-             sampled nodes, and the build and recall at nn-descent's
-             default of 20 iterations (reported, not gated).
-             Every kernel of a path must have launched during that path's
-             run (counts set to 0 just before it, read just after);
-6. report  — each kernel timed at its path's shapes beside its plain
-             version and its bound (the IVF-Flat kernels also by stage:
-             staging loads and epilogue, dots, top-k selection); then the
-             nvidia-smi line, one JSON line of per-kernel numbers, and last
-             the result line.
+             optimize (graph_degree=32) -> packed inline layout, with the
+             nn-descent graph's recall on 1,000 sampled nodes and the
+             build and recall at nn-descent's default of 20 iterations
+             (reported, not gated); (b) the reference's default build, an
+             IVF-PQ self-search refined exactly -> optimize -> packed
+             layout. Each part timed; search the 10,000 queries with
+             n_seeds=64, max_iterations=15 and k=10; recall@10 as above
+             (>= 0.90), QPS and a profile as above;
+6. IVF-PQ path — the JAX package's DEEP-10M configuration
+             (bench.py:283-343) on 10,000,000 x 96 SIFT-like rows: the
+             streamed build (batch_size=2,000,000, n_lists=1024,
+             pq_dim=48, pq_bits=8, the default int8 cache), split into
+             train / encode / pack / rec_norms / cache; search 10,000
+             queries with n_probes=128 and k=10: recall@10 on 1,000
+             queries (>= 0.85), QPS, launches per search, a profile; the
+             refined search (30 candidates refined exactly to 10, recall
+             >= 0.95). Every kernel of a path must have launched during
+             that path's run (counts set to 0 just before it, read just
+             after);
+7. report  — each kernel (and kernel 2's int8 arm) timed at its path's
+             shapes beside its plain version and its bound (the scan
+             kernels also by stage: staging loads and epilogue, dots,
+             top-k selection); then the nvidia-smi line, one JSON line of
+             per-kernel numbers, and last the result line.
 
 Tolerances: the brute-force, list-scan and join kernels and their plain
 versions sum f32 products in different orders, so distances agree to
 1e-4 relative plus an absolute term (1e-4; for the join 2e-6 of the
 expanded form's terms, ||q||^2 + ||c||^2, whose rounding it inherits),
 and ids agree exactly wherever a distance is not within that tolerance of
-its neighbour in the row (a tie). The beam step and its plain version
-round and sum in one fixed order, so they must agree bit for bit.
+its neighbour in the row (a tie). The int8 arm's residual queries, their
+qaux and the operand rounding are computed in one order by both, so only
+the dots' sum order differs. The beam step and its plain version round
+and sum in one fixed order, so they must agree bit for bit.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -67,7 +83,10 @@ H100_HBM_BYTES_PER_S = 3.35e12        # NVIDIA data sheet, SXM
 H100_F32_FLOPS = 67e12                 # f32 on the CUDA cores
 H100_BF16_FLOPS = 989e12               # bf16 tensor cores, dense
 RTOL = ATOL = 1e-4
+F32, BF16 = torch.float32, torch.bfloat16
 RECALL_FLOOR = 0.90
+IVF_PQ_RECALL_FLOOR = 0.85         # IVF-PQ at the DEEP-10M config
+REFINED_RECALL_FLOOR = 0.95        # the same, 3k candidates refined to k
 # nn-descent iterations of the CAGRA build: at the reference's default of
 # 20, the sampled join has not converged at 1M rows (PERF.md, PR 5)
 NN_DESCENT_NITER = 80
@@ -226,12 +245,16 @@ def phase_small_parity(dev) -> None:
 
     g = torch.Generator(device=dev).manual_seed(1)
     log("parity (small, ragged):")
-    for m, n, d, k, mk, dt, filt in [
-            (5, 300, 24, 10, fused_topk.L2, torch.float32, False),
-            (70, 3000, 33, 100, fused_topk.IP, torch.float32, True),
-            (64, 2000, 64, 256, fused_topk.COSINE, torch.float32, False),
-            (100, 4000, 128, 10, fused_topk.L2, torch.bfloat16, True)]:
-        q = torch.randn(m, d, generator=g, device=dev)
+    # (queries, rows) types: f32 x f32, f32 x bf16 (rows widened, queries
+    # unrounded) and bf16 x bf16
+    for m, n, d, k, mk, qt, dt, filt in [
+            (5, 300, 24, 10, fused_topk.L2, F32, F32, False),
+            (70, 3000, 33, 100, fused_topk.IP, F32, F32, True),
+            (64, 2000, 64, 256, fused_topk.COSINE, F32, F32, False),
+            (100, 4000, 128, 10, fused_topk.L2, F32, BF16, True),
+            (70, 3000, 40, 64, fused_topk.IP, F32, BF16, False),
+            (100, 4000, 128, 10, fused_topk.L2, BF16, BF16, True)]:
+        q = torch.randn(m, d, generator=g, device=dev).to(qt)
         x = torch.randn(n, d, generator=g, device=dev).to(dt)
         keep = ((torch.rand(n, generator=g, device=dev) < 0.6).int()
                 if filt else None)
@@ -240,7 +263,8 @@ def phase_small_parity(dev) -> None:
         pd, pi = fused_topk.fused_knn_topk_plain(q, x, k, metric_kind=mk,
                                                  keep=keep)
         compare(f"fused_knn_topk m={m} n={n} d={d} k={k} metric={mk} "
-                f"{str(dt)[6:]} keep={filt}", kd, ki, pd, pi)
+                f"{str(qt)[6:]} x {str(dt)[6:]} keep={filt}", kd, ki, pd,
+                pi)
 
     C, cap, d, nb, G, m = 16, 384, 96, 40, 256, 500
     storage = torch.randn(C, cap, d, generator=g, device=dev)
@@ -258,19 +282,74 @@ def phase_small_parity(dev) -> None:
     norms = (storage * storage).sum(2)
     qn = (q * q).sum(1)
     keep = (torch.rand(C, cap, generator=g, device=dev) < 0.8).int()
-    for mk, qa, xn, kp, k, dt in [
-            (ivf_scan.L2, qn, norms, None, 10, torch.float32),
-            (ivf_scan.IP, None, None, keep, 50, torch.float32),
-            (ivf_scan.COSINE, qn.sqrt(), norms, keep, 256, torch.float32),
-            (ivf_scan.L2, qn, norms, keep, 10, torch.bfloat16)]:
+    for mk, qa, xn, kp, k, qt, dt in [
+            (ivf_scan.L2, qn, norms, None, 10, F32, F32),
+            (ivf_scan.IP, None, None, keep, 50, F32, F32),
+            (ivf_scan.COSINE, qn.sqrt(), norms, keep, 256, F32, F32),
+            (ivf_scan.L2, qn, norms, keep, 10, F32, BF16),
+            (ivf_scan.IP, None, None, None, 64, F32, BF16),
+            (ivf_scan.L2, qn, norms, keep, 10, BF16, BF16)]:
         st = storage.to(dt)
-        kd, ki = ivf_scan.ivf_list_scan_topk(st, ids, sizes, bl, bq, q, qa,
-                                             xn, kp, k=k, metric_kind=mk)
-        pd, pi = ivf_scan.ivf_list_scan_topk_plain(st, ids, sizes, bl, bq, q,
-                                                   qa, xn, kp, k=k,
-                                                   metric_kind=mk)
-        compare(f"ivf_list_scan_topk k={k} metric={mk} {str(dt)[6:]} "
-                f"keep={kp is not None}", kd, ki, pd, pi)
+        kd, ki = ivf_scan.ivf_list_scan_topk(st, ids, sizes, bl, bq,
+                                             q.to(qt), qa, xn, kp, k=k,
+                                             metric_kind=mk)
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(st, ids, sizes, bl, bq,
+                                                   q.to(qt), qa, xn, kp,
+                                                   k=k, metric_kind=mk)
+        compare(f"ivf_list_scan_topk k={k} metric={mk} {str(qt)[6:]} x "
+                f"{str(dt)[6:]} keep={kp is not None}", kd, ki, pd, pi)
+    phase_small_parity_int8(dev, g)
+
+
+def phase_small_parity_int8(dev, g) -> None:
+    """Kernel 2's int8 arm with residual queries against its plain
+    version: L2 and inner product, with and without keep, k from 1 to
+    256, rot off and on multiples of 16, bf16 and f32 operands, empty
+    slots, an empty list and one shorter than k."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    log("parity (small, ragged): ivf_list_scan_topk, int8 rows, residual "
+        "queries")
+    C, cap, nb, G, m = 12, 384, 30, 256, 400
+    for rot, k, mk, filt, cd in [
+            (20, 1, ivf_scan.L2, False, "bf16"),
+            (20, 10, ivf_scan.IP, True, "f32"),
+            (40, 64, ivf_scan.L2, True, "bf16"),
+            (40, 256, ivf_scan.IP, False, "bf16"),
+            (96, 10, ivf_scan.L2, False, "f32"),
+            (96, 10, ivf_scan.L2, True, "bf16"),
+            (96, 64, ivf_scan.IP, True, "bf16"),
+            (128, 256, ivf_scan.L2, False, "f32"),
+            (128, 1, ivf_scan.IP, False, "f32")]:
+        cache = torch.randint(-127, 128, (C, cap, rot), generator=g,
+                              device=dev, dtype=torch.int8)
+        scale = float(torch.rand((), generator=g, device=dev) * 0.05 + 0.01)
+        recon = cache.float() * scale
+        norms = (recon * recon).sum(2)
+        ids = torch.arange(C * cap, dtype=torch.int32,
+                           device=dev).reshape(C, cap) * 7 + 3
+        sizes = torch.randint(0, cap + 1, (C,), generator=g, device=dev,
+                              dtype=torch.int32)
+        sizes[0], sizes[1] = 0, 5
+        bl = torch.randint(0, C, (nb,), generator=g, device=dev,
+                           dtype=torch.int32)
+        bl[:2] = torch.tensor([0, 1], device=dev)
+        bq = torch.randint(-1, m, (nb, G), generator=g, device=dev,
+                           dtype=torch.int32)
+        q_rot = torch.randn(m, rot, generator=g, device=dev) * 3
+        c_rot = torch.randn(C, rot, generator=g, device=dev)
+        kp = ((torch.rand(C, cap, generator=g, device=dev) < 0.8).int()
+              if filt else None)
+        kw = dict(k=k, metric_kind=mk, compute_dtype=cd, scale=scale)
+        if mk == ivf_scan.L2:
+            kw["centers"] = c_rot
+        xn = norms if mk == ivf_scan.L2 else None
+        kd, ki = ivf_scan.ivf_list_scan_topk(cache, ids, sizes, bl, bq,
+                                             q_rot, None, xn, kp, **kw)
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(cache, ids, sizes, bl, bq,
+                                                   q_rot, None, xn, kp, **kw)
+        compare(f"ivf_list_scan_topk int8 rot={rot} k={k} metric={mk} "
+                f"keep={filt} {cd}", kd, ki, pd, pi)
 
 
 def compare_exact(name, outs_k, outs_p) -> None:
@@ -577,16 +656,21 @@ def stage_split(name: str, kern, full_ms: float) -> None:
         f"builds {ms[0]:.3f} and {ms[1]:.3f} ms)")
 
 
-def measure_ivf(args, kw, launches) -> dict:
+def measure_ivf(args, kw, launches, arm: str = "") -> dict:
+    """Kernel 2 at a path's captured inputs: agreement with the plain
+    version, time, stage split, plain time and bound. ``arm`` names the
+    storage arm in the report ("" for the float arm)."""
     from raft_tpu_torch.ops import ivf_scan
 
     (storage, indices, list_sizes, bucket_list, bucket_q, queries, qaux,
      norms, keep) = (list(args) + [None] * 9)[:9]
     k, mk = kw["k"], kw["metric_kind"]
-    log(f"kernel ivf_list_scan_topk at the main path's shapes: storage "
+    name = "ivf_list_scan_topk" + (f":{arm}" if arm else "")
+    log(f"kernel {name} at its path's shapes: storage "
         f"{tuple(storage.shape)} {storage.dtype}, buckets "
         f"{tuple(bucket_q.shape)}, queries {tuple(queries.shape)} "
-        f"{queries.dtype}, k={k}")
+        f"{queries.dtype}, k={k}, compute {kw.get('compute_dtype')}, "
+        f"residual {kw.get('centers') is not None}")
     before = ivf_scan.ivf_list_scan_topk.launches
 
     def kern():
@@ -597,9 +681,10 @@ def measure_ivf(args, kw, launches) -> dict:
 
     kd, ki = kern()
     pd, pi = plain()
-    err = compare("ivf_list_scan_topk (main-path shapes)", kd, ki, pd, pi)
+    err = compare(f"{name} (path shapes)", kd, ki, pd, pi)
+    del kd, ki, pd, pi
     ms = cuda_ms(kern, reps=10)
-    stage_split("ivf_list_scan_topk", kern, ms)
+    stage_split(name, kern, ms)
     plain_ms = cuda_ms(plain, reps=2)
     ivf_scan.ivf_list_scan_topk.launches = before   # measurement launches
 
@@ -614,22 +699,28 @@ def measure_ivf(args, kw, launches) -> dict:
     probed[bucket_list.long()[valid_q > 0]] = True
     probed_rows = int(sizes[probed].sum())
     nb, G = bucket_q.shape
+    centers = kw.get("centers")
     bytes_ = (probed_rows * (d * storage.element_size() + 4
                              + (4 if norms is not None else 0))
-              + queries.shape[0] * d * 4 + queries.shape[0] * 4
+              + queries.shape[0] * d * 4
+              + (queries.shape[0] * 4 if qaux is not None else 0)
+              + (C * d * 4 if centers is not None else 0)
               + nb * 4 + nb * G * 4 + C * 4 + nb * G * k * 8)
     flops = 2.0 * d * float(rows_scanned)
-    bf16 = torch.bfloat16 in (storage.dtype, queries.dtype)
+    cd = kw.get("compute_dtype") or (
+        "bf16" if queries.dtype == torch.bfloat16 else "f32")
+    bf16 = cd == "bf16"
     peak = H100_BF16_FLOPS if bf16 else H100_F32_FLOPS
     t_bytes = bytes_ / H100_HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
-    log(f"  ivf_list_scan_topk: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain; "
-        f"{flops / 1e9:.1f} GFLOP ({'bf16' if bf16 else 'f32'} operands), "
+    log(f"  {name}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain; "
+        f"{flops / 1e9:.1f} GFLOP ({cd} operands), "
         f"{bytes_ / 1e9:.3f} GB -> bound {max(t_bytes, t_ops):.3f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
-    return {"name": "ivf_list_scan_topk", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "raft_tpu_torch/ops/csrc/ivf_list_scan_topk.cu",
-            "replaces": "raft_tpu/ops/ivf_scan.py:198",
+            "replaces": ("raft_tpu/ops/ivf_scan.py:302" if arm
+                         else "raft_tpu/ops/ivf_scan.py:198"),
             "launches": launches, "max_abs_err": err["max_abs_err"],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -941,6 +1032,253 @@ def measure_beam(args, kw, launches) -> dict:
             "library_ms": None}
 
 
+def phase_small_ivf_pq(dev) -> None:
+    """IVF-PQ built on the card through the user's entry point and
+    searched there (kernel 2's int8 arm) and, over the same index, on the
+    CPU (its plain version): L2 and inner product. Both paths compute the
+    same residual queries; the kernel and the plain version sum the f32
+    products in other orders, so the tolerance is the module's."""
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import ivf_scan
+
+    x = sift_like(20_000, 96, seed=7, device=dev)
+    q = sift_like(300, 96, seed=8, device=dev)
+    log("parity (small IVF-PQ search, card vs CPU):")
+    for metric in (DistanceType.L2Expanded, DistanceType.InnerProduct):
+        ix = ivf_pq.build(ivf_pq.IndexParams(
+            n_lists=64, pq_dim=48, kmeans_n_iters=10, metric=metric), x,
+            device=dev)
+        if ix.cache_kind != "i8":
+            raise SmokeFailure(f"small IVF-PQ: cache {ix.cache_kind}, not i8")
+        sp = ivf_pq.SearchParams(n_probes=8)
+        before = ivf_scan.ivf_list_scan_topk.launches
+        kd, ki = ivf_pq.search(sp, ix, q, 10)
+        if ivf_scan.ivf_list_scan_topk.launches != before + 1:
+            raise SmokeFailure("small IVF-PQ search did not launch kernel 2")
+        cpu_ix = dataclasses.replace(ix, **{
+            f.name: getattr(ix, f.name).cpu() for f in dataclasses.fields(ix)
+            if isinstance(getattr(ix, f.name), torch.Tensor)})
+        pd, pi = ivf_pq.search(sp, cpu_ix, q.cpu(), 10)
+        compare(f"ivf_pq.search 20k x 96, 64 lists, {metric.name}",
+                kd.cpu(), ki.cpu(), pd, pi)
+
+
+def timed_patches(secs: dict, patches):
+    """Stand-ins for module functions that add each call's seconds (the
+    card synchronised on both sides) to ``secs[name]``; returns the
+    (module, attribute, original) list to restore."""
+    saved = []
+    for mod, attr, name in patches:
+        fn = getattr(mod, attr)
+
+        def run(*a, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[_name] = secs.get(_name, 0.0) + time.perf_counter() - t0
+            return out
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, run)
+    return saved
+
+
+def record_scan(captured: dict, pick):
+    """Stand-in for kernel 2's wrapper that keeps the inputs of the call
+    ``pick(args, kwargs)`` selects. The wrapper counts its launches on the
+    module attribute it is called by, so while the stand-in is in place
+    the count lands on the stand-in, which starts at 0. Returns (the
+    original to restore, the stand-in)."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    orig = ivf_scan.ivf_list_scan_topk
+
+    def rec(*a, **kw):
+        if pick(a, kw):
+            captured["scan"] = (a, kw)
+        return orig(*a, **kw)
+
+    rec.launches = 0
+    ivf_scan.ivf_list_scan_topk = rec
+    return orig, rec
+
+
+def timed_batches(fn, n: int = 5):
+    """Warm-up, then ``n`` timed calls (host clock around a synchronised
+    card); returns the seconds of each."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def ivf_pq_path(dev, n=10_000_000, d=96, nq=10_000, n_lists=1024,
+                pq_dim=48, n_probes=128, k=10, batch_size=2_000_000) -> dict:
+    """IVF-PQ at the JAX package's DEEP-10M configuration (bench.py:283-343)
+    on SIFT-like rows made on the card: the streamed build with its
+    default int8 cache, split into its parts; search (recall, QPS, the
+    kernel's launches, a profile); the refined search (3k candidates,
+    exact refine to k)."""
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
+    from raft_tpu_torch.ops import ivf_scan
+
+    x = sift_like(n, d, seed=3, device=dev)
+    q = sift_like(nq, d, seed=4, device=dev)
+    torch.cuda.synchronize()
+    secs, captured = {}, {}
+    saved = timed_patches(secs, [
+        (ivf_pq, "_quantizer_index", "train"), (ivf_pq, "encode", "encode"),
+        (ivf_pq, "_pack_lists", "pack"), (ivf_pq, "_rec_norms", "rec_norms"),
+        (ivf_pq, "_attach_cache", "cache")])
+    params = ivf_pq.IndexParams(n_lists=n_lists, pq_dim=pq_dim, pq_bits=8,
+                                kmeans_trainset_fraction=0.1,
+                                cache_dtype="auto")
+    sp = ivf_pq.SearchParams(n_probes=n_probes)
+    orig, rec = record_scan(captured, lambda a, kw: True)
+    try:
+        t0 = time.perf_counter()
+        index = ivf_pq.build(params, x, batch_size=batch_size, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        out_d, out_i = ivf_pq.search(sp, index, q, k)
+        _, truth = brute_force.knn(q[:1000], x, k, device=dev)
+        torch.cuda.synchronize()
+        launches = rec.launches
+    finally:
+        ivf_scan.ivf_list_scan_topk = orig
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    C, cap = index.indices.shape
+    sizes = index.list_sizes
+    log(f"IVF-PQ path (DEEP-10M config): {n} x {d} SIFT-like rows, "
+        f"n_lists={n_lists}, pq_dim={pq_dim}, pq_bits=8, rot "
+        f"{index.rot_dim}, cap={cap}, list sizes {int(sizes.min())}.."
+        f"{int(sizes.max())}, cache {index.cache_kind} "
+        f"({index.recon_cache.numel() / 1e9:.3f} GB); build {build_s:.2f} s "
+        f"= " + " + ".join(f"{name} {secs[name]:.2f}" for name in
+                           ("train", "encode", "pack", "rec_norms", "cache")))
+    if index.cache_kind != "i8":
+        raise SmokeFailure(f"cache_dtype='auto' gave {index.cache_kind!r}, "
+                           "not the int8 cache")
+    if launches <= 0:
+        raise SmokeFailure("ivf_list_scan_topk never launched on the IVF-PQ "
+                           "path")
+    if out_d.shape != (nq, k) or not bool(torch.isfinite(out_d).all()) or \
+            bool((out_i < 0).any()):
+        raise SmokeFailure("IVF-PQ search returned non-finite or missing "
+                           "neighbours")
+    rec = recall_of(out_i[:1000], truth)
+    log(f"  kernel launches during the path: ivf_list_scan_topk {launches}; "
+        f"recall@{k} on {truth.shape[0]} queries vs exact brute force: "
+        f"{rec:.4f}")
+    if rec < IVF_PQ_RECALL_FLOOR:
+        raise SmokeFailure(f"IVF-PQ recall {rec:.4f} < {IVF_PQ_RECALL_FLOOR}")
+
+    before = ivf_scan.ivf_list_scan_topk.launches
+    times = timed_batches(lambda: ivf_pq.search(sp, index, q, k))
+    per_search = (ivf_scan.ivf_list_scan_topk.launches - before) / 6
+    med = statistics.median(times)
+    log(f"  search: {nq} queries in {med * 1e3:.2f} ms (median of 5) -> "
+        f"{nq / med:.1f} QPS; batches ms "
+        f"{[round(t * 1e3, 3) for t in times]}; kernel launches per search "
+        f"{per_search:g}")
+    profile_search(lambda: ivf_pq.search(sp, index, q, k))
+
+    def refined():
+        _, cand = ivf_pq.search(sp, index, q, 3 * k)
+        return refine.refine(x, q, cand, k, device=dev)
+
+    rtimes = timed_batches(refined)
+    rmed = statistics.median(rtimes)
+    _, rid = refined()
+    rrec = recall_of(rid[:1000], truth)
+    log(f"  refined search (3k = {3 * k} candidates, exact refine to {k}): "
+        f"{nq} queries in {rmed * 1e3:.2f} ms (median of 5) -> "
+        f"{nq / rmed:.1f} QPS; recall@{k} {rrec:.4f}")
+    if rrec < REFINED_RECALL_FLOOR:
+        raise SmokeFailure(f"refined IVF-PQ recall {rrec:.4f} < "
+                           f"{REFINED_RECALL_FLOOR}")
+    del x, index
+    return {"captured": captured["scan"], "launches": launches,
+            "build_s": build_s, "secs": secs, "recall": rec,
+            "qps": nq / med, "refined_recall": rrec, "refined_qps": nq / rmed}
+
+
+def cagra_ivf_pq_path(dev, x, q, truth, k=10) -> dict:
+    """CAGRA built the reference's default way (IVF-PQ self-search +
+    exact refine -> optimize -> packed layout) on the main path's rows,
+    each part timed; search, recall, QPS and a profile as in the other
+    CAGRA path."""
+    from raft_tpu_torch.neighbors import cagra, ivf_pq, refine
+    from raft_tpu_torch.ops import beam_step, ivf_scan
+
+    secs, captured = {}, {}
+    saved = timed_patches(secs, [
+        (ivf_pq, "build", "ivf_pq_build"), (ivf_pq, "search", "self_search"),
+        (refine, "refine", "refine"), (cagra, "optimize", "optimize"),
+        (cagra, "_attach_inline", "pack")])
+    beam = beam_step.beam_merge_step
+    params = cagra.IndexParams(intermediate_graph_degree=64, graph_degree=32)
+    sp = cagra.SearchParams(n_seeds=64, max_iterations=15)
+    # keep the first self-search batch's scan inputs
+    orig, rec = record_scan(captured, lambda a, kw: "scan" not in captured)
+    try:
+        beam.launches = 0
+        t0 = time.perf_counter()
+        index = cagra.build(params, x, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        scan_build, beam_build = rec.launches, beam.launches
+    finally:
+        ivf_scan.ivf_list_scan_topk = orig
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    out_d, out_i = cagra.search(sp, index, q, k)
+    torch.cuda.synchronize()
+    launches = {"ivf_list_scan_topk": scan_build,
+                "beam_merge_step": beam.launches}
+    log(f"CAGRA path, IVF-PQ build (the default): {x.shape[0]} x "
+        f"{x.shape[1]}, intermediate degree 64 -> graph_degree "
+        f"{index.graph_degree}; build {build_s:.2f} s = IVF-PQ build "
+        f"{secs['ivf_pq_build']:.2f} + self-search "
+        f"{secs['self_search']:.2f} + refine {secs['refine']:.2f} + "
+        f"optimize {secs['optimize']:.2f} + pack {secs['pack']:.2f} (the "
+        f"rest: self-edge drop)")
+    log(f"  launches: ivf_list_scan_topk {scan_build} per build, "
+        f"beam_merge_step {launches['beam_merge_step'] - beam_build} per "
+        f"search of {q.shape[0]} queries")
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            raise SmokeFailure(f"{name} never launched on the CAGRA IVF-PQ "
+                               "path")
+    if out_d.shape != (q.shape[0], k) or \
+            not bool(torch.isfinite(out_d).all()) or bool((out_i < 0).any()):
+        raise SmokeFailure("CAGRA (IVF-PQ build) search returned non-finite "
+                           "or missing neighbours")
+    rec = recall_of(out_i[:truth.shape[0]], truth)
+    log(f"  recall@{k} on {truth.shape[0]} queries vs exact brute force: "
+        f"{rec:.4f}")
+    if rec < RECALL_FLOOR:
+        raise SmokeFailure(f"CAGRA (IVF-PQ build) recall {rec:.4f} < "
+                           f"{RECALL_FLOOR}")
+    times = timed_batches(lambda: cagra.search(sp, index, q, k))
+    med = statistics.median(times)
+    log(f"  search: {q.shape[0]} queries in {med * 1e3:.2f} ms (median of 5)"
+        f" -> {q.shape[0] / med:.1f} QPS; batches ms "
+        f"{[round(t * 1e3, 3) for t in times]}")
+    profile_search(lambda: cagra.search(sp, index, q, k))
+    return {"captured": captured["scan"], "launches": launches,
+            "build_s": build_s, "secs": secs, "recall": rec,
+            "qps": q.shape[0] / med}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -960,26 +1298,42 @@ def main() -> int:
         phase_small_parity(dev)
         phase_small_parity_graph(dev)
         phase_small_search(dev)
+        phase_small_ivf_pq(dev)
         phase_small_cagra(dev)
         res = main_path(dev)
-        cres = cagra_path(dev, res.pop("x"), res.pop("q"), res.pop("truth"))
+        x, q, truth = res.pop("x"), res.pop("q"), res.pop("truth")
+        cres = cagra_path(dev, x, q, truth)
+        pres = cagra_ivf_pq_path(dev, x, q, truth)
+        del x, q, truth
+        dres = ivf_pq_path(dev)
         cap, ccap = res["captured"], cres["captured"]
         kernels = [measure_ivf(*cap["ivf_list_scan_topk"],
                                res["launches"]["ivf_list_scan_topk"]),
+                   measure_ivf(*dres["captured"], dres["launches"],
+                               arm="int8"),
                    measure_knn(*cap["fused_knn_topk"],
                                res["launches"]["fused_knn_topk"]),
                    measure_join(*ccap["join"],
                                 cres["launches"]["graph_local_join"]),
                    measure_beam(*ccap["beam"],
                                 cres["launches"]["beam_merge_step"])]
+        # the int8 arm at the CAGRA self-search's shapes (reported only)
+        measure_ivf(*pres["captured"],
+                    pres["launches"]["ivf_list_scan_topk"],
+                    arm="int8 (CAGRA self-search)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"IVF-Flat path: build {res['build_s']:.3f} s, QPS {res['qps']:.1f}, "
         f"recall@10 {res['recall']:.4f}")
-    log(f"CAGRA path: build {cres['build_s']:.3f} s, QPS {cres['qps']:.1f}, "
-        f"recall@10 {cres['recall']:.4f}; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+    log(f"CAGRA path (nn-descent): build {cres['build_s']:.3f} s, QPS "
+        f"{cres['qps']:.1f}, recall@10 {cres['recall']:.4f}")
+    log(f"CAGRA path (IVF-PQ build): build {pres['build_s']:.3f} s, QPS "
+        f"{pres['qps']:.1f}, recall@10 {pres['recall']:.4f}")
+    log(f"IVF-PQ path (DEEP-10M config): build {dres['build_s']:.3f} s, QPS "
+        f"{dres['qps']:.1f}, recall@10 {dres['recall']:.4f}; refined QPS "
+        f"{dres['refined_qps']:.1f}, recall@10 {dres['refined_recall']:.4f}; "
+        f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

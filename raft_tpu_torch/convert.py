@@ -9,6 +9,7 @@ numbers.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional
 
 import numpy as np
@@ -16,7 +17,8 @@ import torch
 
 from raft_tpu_torch.core.resources import as_tensor, resolve_device
 from raft_tpu_torch.distance.types import resolve_metric
-from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, nn_descent
+from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq, \
+    nn_descent
 
 
 def ivf_flat_index_from_numpy(arrays: Mapping[str, np.ndarray], metric,
@@ -79,3 +81,60 @@ def nn_descent_index_from_numpy(arrays: Mapping[str, np.ndarray],
     return nn_descent.Index(
         graph=as_tensor(arrays["graph"], dev, torch.int32),
         distances=as_tensor(arrays["distances"], dev, torch.float32))
+
+
+def ivf_pq_index_from_numpy(arrays: Mapping[str, np.ndarray], metric,
+                            device=None, pq_dim: Optional[int] = None,
+                            pq_bits: Optional[int] = None,
+                            codebook_kind: int = 0,
+                            recon_scale: Optional[float] = None,
+                            metric_arg: float = 2.0,
+                            cache_decoded: bool = True,
+                            cache_dtype: str = "auto") -> ivf_pq.Index:
+    """An IVF-PQ index from the reference's arrays: ``centers``,
+    ``centers_rot``, ``rotation``, ``pq_centers``, ``codes`` (uint32
+    words, held here as int32 with the same bits), ``indices``,
+    ``list_sizes``, ``rec_norms`` and, optionally, the int8
+    ``recon_cache`` with its ``recon_scale`` (an entry of ``arrays`` or
+    the keyword), carried verbatim; without a cache one is built from the
+    codes when ``cache_decoded`` and ``cache_dtype`` ask for it.
+    ``pq_dim`` and ``pq_bits`` default to what the codebooks' shape
+    says."""
+    dev = resolve_device(device)
+    pq_centers = np.asarray(arrays["pq_centers"], np.float32)
+    rot_dim = np.asarray(arrays["rotation"]).shape[0]
+    if pq_dim is None:
+        pq_dim = rot_dim // pq_centers.shape[2]
+    if pq_bits is None:
+        pq_bits = int(pq_centers.shape[1]).bit_length() - 1
+
+    def words(a):
+        a = np.ascontiguousarray(np.asarray(a))
+        return as_tensor(a.view(np.int32) if a.dtype == np.uint32 else a,
+                         dev, torch.int32)
+
+    index = ivf_pq.Index(
+        centers=as_tensor(arrays["centers"], dev, torch.float32),
+        centers_rot=as_tensor(arrays["centers_rot"], dev, torch.float32),
+        rotation=as_tensor(arrays["rotation"], dev, torch.float32),
+        pq_centers=as_tensor(pq_centers, dev),
+        codes=words(arrays["codes"]),
+        indices=as_tensor(arrays["indices"], dev, torch.int32),
+        list_sizes=as_tensor(arrays["list_sizes"], dev, torch.int32),
+        rec_norms=as_tensor(arrays["rec_norms"], dev, torch.float32),
+        metric=resolve_metric(metric), pq_dim_=int(pq_dim),
+        metric_arg=float(metric_arg), codebook_kind=int(codebook_kind),
+        pq_bits=int(pq_bits), cache_decoded=bool(cache_decoded),
+        cache_dtype=str(cache_dtype))
+    cache = arrays.get("recon_cache")
+    if cache is None:
+        return ivf_pq._attach_cache(index)
+    if np.asarray(cache).dtype != np.int8:
+        raise NotImplementedError(
+            "only the int8 decoded-residual cache is ported (ROADMAP.md, "
+            "Queue A item 2)")
+    if recon_scale is None:
+        recon_scale = float(np.asarray(arrays["recon_scale"]))
+    return dataclasses.replace(
+        index, recon_cache=as_tensor(cache, dev, torch.int8),
+        recon_scale=float(np.float32(recon_scale)))

@@ -11,6 +11,10 @@ shape: it keeps the reference's contracts exactly —
 * integer keys stay in the integer domain (exact above 2**24, including
   ``INT32_MIN``), and the values come back in the input dtype;
 * ``in_idx`` carries source indices through the selection.
+
+``sorted`` and ``impl`` take the reference's values; every ``impl``
+("auto" | "top_k" | "tournament" | "hierarchical", all exact selections
+in the reference) runs the same sort, and the result is always sorted.
 """
 
 from __future__ import annotations
@@ -22,14 +26,25 @@ import torch
 from raft_tpu_torch.core.resources import as_tensor, resolve_device
 
 
+_IMPLS = ("auto", "top_k", "tournament", "hierarchical")
+
+
 def select_k(in_val, k: int, in_idx=None, select_min: bool = True,
-             device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+             sorted: bool = True,  # noqa: A002 - the reference's name
+             impl: str = "auto", device=None,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Select the k best per row of ``in_val`` [batch, n] (or [n]).
 
     Runs on ``device`` (default: the CUDA card). Returns
     (out_val [batch, k], out_idx [batch, k] int32 — ``in_idx``'s dtype
-    when ``in_idx`` is given)."""
+    when ``in_idx`` is given). ``sorted`` and ``impl`` as in the module
+    docstring."""
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
     in_val = as_tensor(in_val, resolve_device(device))
+    if impl == "tournament" and not in_val.is_floating_point():
+        raise ValueError(f"impl='tournament' is float-only, got "
+                         f"{in_val.dtype}")
     squeeze = in_val.dim() == 1
     if squeeze:
         in_val = in_val[None, :]

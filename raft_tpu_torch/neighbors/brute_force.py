@@ -5,8 +5,16 @@ Counterpart of ``raft_tpu/neighbors/brute_force.py``: ``build`` :68,
 L2-sqrt, inner product, cosine) run through the fused distance + top-k
 kernel (``ops.fused_topk``), prefilter included; the other metrics compute
 distance blocks in plain PyTorch (``distance.pairwise._block_distance``,
-XLA in the reference) merged into a running top-k. The reference's bf16
-``fast`` two-phase path needs ``refine``, which is not ported yet.
+XLA in the reference) merged into a running top-k. ``fast=True`` is the
+reference's two-phase path: bf16 candidates (4k, at least k + 32) from the
+kernel, then an exact f32 ``refine``.
+
+``impl`` takes the reference's names: "auto" and "fused_exact[:tile]" run
+the kernel (its plain version on CPU tensors), "scan" and any name ending
+in ":interpret" the plain version; "fused_fold" forces an approximate arm
+that is not ported yet (ROADMAP.md, Queue B item 2) and raises.
+``tile_n`` is accepted for the reference's signature; the kernel and the
+plain blocks choose their own tiles.
 """
 
 from __future__ import annotations
@@ -22,8 +30,8 @@ from raft_tpu_torch.distance.pairwise import _EXPANDED, _block_distance, \
     _expanded_path
 from raft_tpu_torch.distance.types import DistanceType, is_min_close, \
     resolve_metric
-from raft_tpu_torch.neighbors.common import as_filter, blocked_topk, \
-    filter_keep, sentinel_for
+from raft_tpu_torch.neighbors.common import approx_arm_not_ported, \
+    as_filter, blocked_topk, filter_keep, sentinel_for
 from raft_tpu_torch.ops import fused_topk
 
 _SERIAL_VERSION = 1
@@ -73,17 +81,35 @@ def build(dataset, metric="sqeuclidean", metric_arg: float = 2.0,
                  norms=norms)
 
 
-def search(index: Index, queries, k: int,
-           prefilter=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _impl_route(impl: str) -> str:
+    """"kernel" or "plain" for the reference's ``impl`` names."""
+    name = str(impl)
+    if name.startswith("fused_fold"):
+        raise approx_arm_not_ported(f"brute_force impl={impl!r}")
+    if name == "scan" or name.endswith(":interpret"):
+        return "plain"
+    if name == "auto" or name.startswith("fused_exact"):
+        return "kernel"
+    raise ValueError(f"impl must be auto|scan|fused_exact[:tile_n]"
+                     f"[:interpret], got {impl!r}")
+
+
+def search(index: Index, queries, k: int, prefilter=None,
+           tile_n: Optional[int] = None, fast: bool = False,
+           impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k-NN search on the index's device: (distances [m, k], indices
     [m, k] int32), best-first. ``prefilter``: a Bitset or BitsetFilter
     over dataset row ids. Slots without a valid candidate hold the metric's
-    sentinel distance and id -1."""
+    sentinel distance and id -1. ``tile_n``, ``fast`` and ``impl`` as in
+    the module docstring."""
     dev = index.dataset.device
     queries = as_tensor(queries, dev)
     n = index.size
     if not 0 < k <= n:
         raise ValueError(f"k={k} out of range for dataset size {n}")
+    route = _impl_route(impl)
+    if fast and index.metric in _FUSED_KIND:
+        return _search_fast(index, queries, int(k), prefilter, route)
     filt = as_filter(prefilter)
     keep = None
     bits = getattr(filt, "bitset", None)
@@ -95,7 +121,9 @@ def search(index: Index, queries, k: int,
     sentinel = sentinel_for(metric)
     if metric in _FUSED_KIND and k <= fused_topk.K_MAX:
         kind = _FUSED_KIND[metric]
-        out_d, out_i = fused_topk.fused_knn_topk(
+        fused = (fused_topk.fused_knn_topk if route == "kernel"
+                 else fused_topk.fused_knn_topk_plain)
+        out_d, out_i = fused(
             queries, index.dataset, int(k), metric_kind=kind,
             norms=index.norms if kind != fused_topk.IP else None, keep=keep)
         if metric == DistanceType.InnerProduct:
@@ -104,6 +132,24 @@ def search(index: Index, queries, k: int,
             out_d = torch.sqrt(torch.clamp_min(out_d, 0.0))
         return torch.where(out_i < 0, sentinel, out_d), out_i
     return _search_blocks(index, queries, int(k), keep, sentinel)
+
+
+def _search_fast(index: Index, queries: torch.Tensor, k: int, prefilter,
+                 route: str):
+    """The reference's two-phase search: bf16 candidates at ~4x k, then an
+    exact f32 refine of them."""
+    from raft_tpu_torch.neighbors.refine import refine
+
+    n = index.size
+    k_cand = min(n, max(4 * k, k + 32))
+    bf = Index(dataset=index.dataset.to(torch.bfloat16), metric=index.metric,
+               metric_arg=index.metric_arg, norms=index.norms)
+    cand_d, cand = search(bf, queries.to(torch.bfloat16), k_cand,
+                          prefilter=prefilter,
+                          impl="auto" if route == "kernel" else "scan")
+    cand = torch.where(cand_d == sentinel_for(index.metric), -1, cand)
+    return refine(index.dataset, queries, cand, k, index.metric,
+                  device=index.dataset.device)
 
 
 def _search_blocks(index: Index, queries: torch.Tensor, k: int,

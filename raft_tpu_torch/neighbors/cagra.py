@@ -3,14 +3,15 @@
 Counterpart of ``raft_tpu/neighbors/cagra.py``, with the same parameters,
 index fields, packed inline layout and index files.
 
-* **Build** makes an all-KNN graph with nn-descent
-  (``graph_build_algo=build_algo.NN_DESCENT``; its local join is a CUDA
-  kernel, ``ops/graph_join``), prunes it with ``optimize`` (detour counts,
-  then reverse edges spliced in after ``degree/2`` protected slots — the
-  reference's semantics, computed here with a sorted-list membership test
-  instead of the reference's cube of comparisons), and packs the inline
-  search layout. The reference's IVF-PQ builder waits for IVF-PQ
-  (ROADMAP.md, Queue A item 7) and raises ``NotImplementedError``.
+* **Build** makes an all-KNN graph — by default (``graph_build_algo=
+  build_algo.IVF_PQ``, ``build_knn_graph``) an IVF-PQ self-search whose
+  candidates are refined exactly (the list scan is kernel 2's int8 arm),
+  or with nn-descent (``build_algo.NN_DESCENT``; its local join is a CUDA
+  kernel, ``ops/graph_join``) — prunes it with ``optimize`` (detour
+  counts, then reverse edges spliced in after ``degree/2`` protected slots
+  — the reference's semantics, computed here with a sorted-list
+  membership test instead of the reference's cube of comparisons), and
+  packs the inline search layout.
 * **Search** with the packed layout (the default whenever the index
   carries ``nbr_pack``): seeds from a query-shared slab scored by one f32
   matmul of bf16 operands, then ``iters`` beam steps (``ops/beam_step``:
@@ -31,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from raft_tpu_torch.core.resources import as_tensor, resolve_device
@@ -39,9 +41,10 @@ from raft_tpu_torch.distance.types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.bitonic import sort_by_key
 from raft_tpu_torch.neighbors import nn_descent
 from raft_tpu_torch.neighbors.common import (
-    as_filter, merge_topk, resolve_filter_bits)
+    as_filter, backend_name, merge_topk, resolve_filter_bits)
 from raft_tpu_torch.neighbors.ivf_flat import _pack_lists
-from raft_tpu_torch.ops.beam_step import beam_merge_step, packed_row_layout
+from raft_tpu_torch.ops.beam_step import beam_merge_step, \
+    beam_merge_step_plain, packed_row_layout
 from raft_tpu_torch.utils.precision import dist_dot
 
 _SERIAL_VERSION = 1
@@ -102,7 +105,10 @@ class SearchParams:
     # seeds scored per query (0 = max(2 * itopk, 128))
     n_seeds: int = 0
     # "auto" = "packed" when the index carries nbr_pack and
-    # compute_dtype is "auto", else "scattered"; either may be forced
+    # compute_dtype is "auto", else "scattered"; the reference's names
+    # force a route: "pallas" (packed, the kernel), "pallas_interpret"
+    # (packed, the kernel's plain version), "xla" (scattered); the port's
+    # own "packed" / "scattered" are accepted too
     scan_impl: str = "auto"
     # reference knobs kept for API parity (no-ops here, as in the
     # reference's batched search)
@@ -293,20 +299,93 @@ def _norms_for(dataset: torch.Tensor, metric: DistanceType):
     return (d32 * d32).sum(1)
 
 
-def build(params: IndexParams, dataset, device=None) -> Index:
-    """Build the index on ``device`` (default: the CUDA card): nn-descent
-    KNN graph, ``optimize``, packed inline layout."""
-    if params.graph_build_algo != build_algo.NN_DESCENT:
-        raise NotImplementedError(
-            "cagra.build with graph_build_algo=IVF_PQ needs IVF-PQ, which "
-            "the port does not have yet (ROADMAP.md, Queue A item 7); use "
-            "build_algo.NN_DESCENT")
+def build_knn_graph(dataset, intermediate_degree: int, metric: DistanceType,
+                    refine_rate: float = 2.0, query_batch: int = 16384,
+                    min_degree: Optional[int] = None,
+                    device=None) -> torch.Tensor:
+    """Raw KNN graph by IVF-PQ self-search + exact refine (reference
+    ``cagra.py:345-440``): [n, min(intermediate_degree, 63)] int32 when the
+    trim applies, else [n, intermediate_degree]; self excluded.
+
+    The reference's parameter heuristic: ``n_lists = clip(n / 2500, 16,
+    1024)``, ``pq_dim`` = d/2 rounded up to a multiple of 8, 10 k-means
+    iterations, a trainset fraction of ``clip(10000 n_lists / n, 0.1,
+    0.5)``, ``n_probes = max(10, n_lists / 10)``. The search k is trimmed
+    to 64 when the final degree (``min_degree``) allows it (63 neighbours
+    after the self edge), as the reference keeps its self-search on the
+    fused scan's k <= 64. Queries run in ``query_batch`` batches, each
+    refined exactly; the self edge (or, if absent, the worst candidate) is
+    pushed to the end and cut."""
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.neighbors.refine import refine
+
     dev = resolve_device(device)
     dataset = as_tensor(dataset, dev)
-    nd_params = nn_descent.IndexParams(
-        graph_degree=int(params.intermediate_graph_degree),
-        metric=params.metric, max_iterations=int(params.nn_descent_niter))
-    knn = nn_descent.build(nd_params, dataset, device=dev).graph
+    n, d = dataset.shape
+    k = int(intermediate_degree) + 1              # +1: drop self afterwards
+    if k > 64 and min_degree is not None and min_degree <= 63:
+        if k > 65:
+            import warnings
+
+            warnings.warn(
+                f"CAGRA build: intermediate_graph_degree={k - 1} trimmed "
+                f"to 63 to keep the self-search at k <= 64 (final "
+                f"graph_degree={min_degree} is unaffected; pass "
+                f"min_degree=None to keep the full candidate pool)",
+                stacklevel=2)
+        k = 64
+    k = min(k, n)
+    gpu_top_k = min(n, max(k, int(k * refine_rate)))
+    if k <= 64 and gpu_top_k > 64:
+        gpu_top_k = 64
+
+    n_lists = int(np.clip(n // 2500, 16, 1024))
+    pq_dim = max(8, ((d // 2) + 7) // 8 * 8)
+    params = ivf_pq.IndexParams(
+        n_lists=n_lists, pq_dim=min(pq_dim, d),
+        metric=(DistanceType.InnerProduct
+                if metric == DistanceType.InnerProduct
+                else DistanceType.L2Expanded),
+        kmeans_n_iters=10,
+        kmeans_trainset_fraction=min(0.5, max(0.1, 10000.0 * n_lists / n)))
+    index = ivf_pq.build(params, dataset, device=dev)
+    sp = ivf_pq.SearchParams(n_probes=min(n_lists, max(10, n_lists // 10)))
+    rows = []
+    for start in range(0, n, query_batch):
+        q = dataset[start:start + query_batch]
+        _, cand = ivf_pq.search(sp, index, q, gpu_top_k)
+        # always refine: optimize reads rank order, and PQ ranks are
+        # approximate even when gpu_top_k == k
+        _, cand = refine(dataset, q, cand, k, metric, device=dev)
+        rows.append(cand)
+    graph = torch.cat(rows)
+    self_col = graph == torch.arange(n, dtype=graph.dtype,
+                                     device=dev)[:, None]
+    order = torch.sort(self_col.to(torch.int32), dim=1, stable=True).indices
+    keep = min(int(intermediate_degree), k - 1)
+    return torch.gather(graph, 1, order)[:, :keep].to(torch.int32)
+
+
+def build(params: IndexParams, dataset, device=None) -> Index:
+    """Build the index on ``device`` (default: the CUDA card): a KNN graph
+    (IVF-PQ self-search + refine, or nn-descent), ``optimize``, packed
+    inline layout."""
+    dev = resolve_device(device)
+    dataset = as_tensor(dataset, dev)
+    if params.graph_build_algo == build_algo.NN_DESCENT:
+        nd_params = nn_descent.IndexParams(
+            graph_degree=int(params.intermediate_graph_degree),
+            metric=params.metric,
+            max_iterations=int(params.nn_descent_niter))
+        knn = nn_descent.build(nd_params, dataset, device=dev).graph
+    elif params.graph_build_algo == build_algo.IVF_PQ:
+        knn = build_knn_graph(dataset, int(params.intermediate_graph_degree),
+                              params.metric,
+                              min_degree=int(params.graph_degree),
+                              device=dev)
+    else:
+        raise ValueError(f"unknown graph_build_algo "
+                         f"{params.graph_build_algo!r}")
     graph = optimize(knn, int(params.graph_degree))
     index = Index(dataset=dataset, graph=graph, metric=params.metric,
                   data_norms=_norms_for(dataset, params.metric))
@@ -544,12 +623,14 @@ def _beam_search_packed(queries, dataset, graph, data_norms, nbr_pack,
                         flat_codes, code_scale: float, k: int, itopk: int,
                         width: int, iters: int, metric: DistanceType,
                         n_seeds: int = 0, filter_bits=None,
-                        filter_nbits: int = 0):
+                        filter_nbits: int = 0, plain: bool = False):
     """Beam search over the packed inline layout: the counterpart of the
     reference's ``_beam_search_pallas``. Seeds are one query-shared slab
     scored by an f32 matmul of the bf16 query and the seeds' int8 codes;
-    every step after that is one ``beam_merge_step``; the buffer's first
+    every step after that is one ``beam_merge_step`` (its plain version
+    with ``plain``, the reference's interpret mode); the buffer's first
     R rows are rescored exactly in f32."""
+    step = beam_merge_step_plain if plain else beam_merge_step
     ip = metric == DistanceType.InnerProduct
     n, d = dataset.shape
     deg = graph.shape[1]
@@ -583,11 +664,11 @@ def _beam_search_packed(queries, dataset, graph, data_norms, nbr_pack,
     buf_d = torch.full((m, itopk), torch.inf, device=dev)
     buf_i = torch.full((m, itopk), -1, dtype=torch.int32, device=dev)
     buf_e = torch.zeros((m, itopk), dtype=torch.int32, device=dev)
-    buf_d, buf_i, buf_e, parents = beam_merge_step(
+    buf_d, buf_i, buf_e, parents = step(
         buf_d, buf_i, buf_e, cand_d=seed_d, cand_i=seed_i, width=width,
         ip=ip)
     for _ in range(iters):
-        out = beam_merge_step(buf_d, buf_i, buf_e, qs=qs, nbr_pack=nbr_pack,
+        out = step(buf_d, buf_i, buf_e, qs=qs, nbr_pack=nbr_pack,
                               parents=parents, deg=deg, d=d, width=width,
                               ip=ip, emit_cands=side)
         buf_d, buf_i, buf_e, parents = out[:4]
@@ -620,13 +701,20 @@ def _beam_search_packed(queries, dataset, graph, data_norms, nbr_pack,
     return _finalize(rd, ri, q32, metric)
 
 
+# the reference's scan_impl names -> the port's routes: "pallas" the packed
+# path through the kernel, "pallas_interpret" the packed path through the
+# kernel's plain version, "xla" the scattered path
+_BEAM_IMPLS = {"pallas": "packed", "pallas_interpret": "packed_plain",
+               "xla": "scattered"}
+
+
 def _resolve_beam_impl(requested: str, index: Index,
                        compute_dtype: str) -> str:
-    if requested not in ("auto", "packed", "scattered"):
-        raise ValueError(f"scan_impl must be auto|packed|scattered, got "
-                         f"{requested!r}")
-    if requested != "auto":
+    if requested in ("packed", "scattered"):
         return requested
+    name = backend_name(requested)
+    if name != "auto":
+        return _BEAM_IMPLS[name]
     if index.nbr_pack is None or compute_dtype != "auto":
         return "scattered"
     return "packed"
@@ -662,7 +750,7 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
     itopk, width, iters, n_seeds = search_plan(search_params, k)
     dtype = str(search_params.compute_dtype)
     impl = _resolve_beam_impl(str(search_params.scan_impl), index, dtype)
-    if impl == "packed":
+    if impl in ("packed", "packed_plain"):
         if index.nbr_pack is None:
             raise ValueError(
                 "scan_impl='packed' needs the packed inline layout (build "
@@ -674,7 +762,8 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
         return _beam_search_packed(
             queries, index.dataset, index.graph, index.data_norms,
             index.nbr_pack, index.flat_codes, index.code_scale, int(k),
-            itopk, width, iters, index.metric, n_seeds, fbits, fnbits)
+            itopk, width, iters, index.metric, n_seeds, fbits, fnbits,
+            plain=impl == "packed_plain")
     return _beam_search(
         queries, index.dataset, index.graph, index.data_norms, int(k),
         itopk, width, iters, index.metric,

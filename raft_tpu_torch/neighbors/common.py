@@ -5,7 +5,10 @@ Counterpart of ``raft_tpu/neighbors/common.py`` (``as_filter`` :82,
 ``merge_topk`` :165), plus :func:`blocked_topk`, the running block merge
 that the plain exact searches share. The reference's approximate merge
 (``lax.approx_min_k``) is a TPU partial-reduce op with no counterpart
-here; every merge is exact.
+here; every merge is exact — as the reference's is off the TPU, where
+``approx_min_k`` returns the exact top-k. :func:`backend_route` maps the
+reference's backend names (``scan_impl``, ``join_impl``) onto the port's
+two routes, for every module that takes them.
 """
 
 from __future__ import annotations
@@ -97,6 +100,50 @@ def resolve_filter_bits(filt, id_bound):
     except AttributeError:      # slotted/frozen filter: correct, uncached
         pass
     return resized
+
+
+def backend_name(requested: str, what: str = "scan_impl") -> str:
+    """A reference backend name (``scan_impl``, ``join_impl``) without its
+    ``":<tile>"`` suffix (``"pallas:16"`` -> ``"pallas"``); raises for a
+    name the reference does not take."""
+    name = str(requested).split(":")[0]
+    if name not in ("auto", "pallas", "pallas_interpret", "xla"):
+        raise ValueError(f"{what} must be auto|pallas|pallas_interpret|xla, "
+                         f"got {requested!r}")
+    return name
+
+
+def backend_route(requested: str, what: str = "scan_impl", kl: int = 0,
+                  k_max: Optional[int] = None) -> str:
+    """The route a reference backend name takes here: ``"kernel"`` for
+    ``"auto"`` and ``"pallas"`` (the CUDA kernel's wrapper, which runs its
+    plain version on CPU tensors), ``"plain"`` for ``"xla"`` and
+    ``"pallas_interpret"`` (the plain PyTorch version on any device). A
+    scan kernel keeps at most ``k_max`` candidates per list: past it
+    (``kl`` = min(k, cap) > ``k_max``) ``"auto"`` takes the exact plain
+    scan, as the reference's ``_resolve_scan_impl`` does, and ``"pallas"``
+    raises."""
+    name = backend_name(requested, what)
+    if name in ("xla", "pallas_interpret"):
+        return "plain"
+    if k_max is not None and kl > k_max:
+        if name == "pallas":
+            raise ValueError(
+                f"{what}={requested!r} keeps at most {k_max} candidates per "
+                f"list, fewer than min(k, cap)={kl}; use {what}='auto' or "
+                "'xla' for the exact scan")
+        return "plain"
+    return "kernel"
+
+
+def approx_arm_not_ported(what: str):
+    """The error for a caller that forces an approximate extraction arm by
+    name: those arms are not ported yet."""
+    return NotImplementedError(
+        f"{what}: the approximate extraction arms (kernel 2's binned, "
+        "binned_deep and fold, kernel 1's fold) are not ported yet "
+        "(ROADMAP.md, Queue B item 2); the exact arm serves every other "
+        "request")
 
 
 def sentinel_for(metric: DistanceType) -> float:

@@ -14,10 +14,17 @@ padding). Search is the reference's five steps:
 4. ``unbucketize_merge``: candidates back to query order, exact merge;
 5. the IP negation, the sentinel and -1 mapping, the L2-sqrt root.
 
-The reference's TPU scan-backend dispatch (``_resolve_scan_impl``), its
-approximate per-list and merge selections and its tracing spans have no
-counterpart: every scan on a CUDA tensor runs the kernel, and every
-selection is exact.
+Scan routes (``SearchParams.scan_impl``, the reference's names): "auto"
+and "pallas" run the kernel (its plain version on CPU tensors), "xla" and
+"pallas_interpret" the plain version. Each list keeps ``min(k, cap)``
+candidates, as the reference's does; beyond the kernel's 256 the scan
+takes the plain version, as the reference's ``_resolve_scan_impl`` sends
+``kl > 256`` to its exact XLA scan. ``local_recall_target`` and
+``merge_recall_target`` are accepted at any value and every selection is
+exact: off the TPU the reference's approximate selections
+(``lax.approx_min_k``) return the exact top-k too, and the approximate
+kernel arms are not ported (ROADMAP.md, Queue B item 2). The tracing spans
+have no counterpart.
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ from raft_tpu_torch.core.serialize import read_index_file, write_index_file
 from raft_tpu_torch.distance.types import DistanceType, is_min_close, \
     resolve_metric
 from raft_tpu_torch.matrix.select_k import select_k
-from raft_tpu_torch.neighbors.common import as_filter, filter_keep, \
-    merge_topk, resolve_filter_bits, sentinel_for
+from raft_tpu_torch.neighbors.common import as_filter, backend_route, \
+    filter_keep, merge_topk, resolve_filter_bits, sentinel_for
 from raft_tpu_torch.ops import ivf_scan
 from raft_tpu_torch.utils.math import cdiv, round_up_to_multiple
 from raft_tpu_torch.utils.precision import dist_dot
@@ -86,12 +93,19 @@ class SearchParams:
     :func:`adaptive_query_group`); ``bucket_batch``: the bucket count is
     padded to a multiple of it (kept for shape parity with the reference);
     ``compute_dtype``: "bf16" rounds both scan operands to bf16 (f32
-    accumulation), "f32" scans in full f32."""
+    accumulation), "f32" scans f32 queries against the stored rows
+    unrounded (bf16 rows widen exactly). ``local_recall_target`` /
+    ``merge_recall_target``: accepted at any value; selection is exact (the
+    module docstring says why). ``scan_impl``: "auto" | "pallas" |
+    "pallas_interpret" | "xla" (module docstring)."""
 
     n_probes: int = 20
     query_group: int = 256
     bucket_batch: int = 32
     compute_dtype: str = "bf16"
+    local_recall_target: float = 0.95
+    merge_recall_target: float = 1.0
+    scan_impl: str = "auto"
 
 
 @dataclasses.dataclass
@@ -280,6 +294,47 @@ def extend(index: Index, new_vectors, new_ids=None) -> Index:
 # ---------------------------------------------------------------------------
 
 
+def coarse_distances(q32: torch.Tensor, centers: torch.Tensor,
+                     metric: DistanceType) -> torch.Tensor:
+    """The coarse phase's queries x centers distances [m, C] in the
+    metric's own space: inner products for IP, ``1 - cos`` for cosine,
+    expanded squared L2 otherwise (shared by IVF-Flat and IVF-PQ)."""
+    cdot = dist_dot(q32, centers.T)
+    if metric == DistanceType.InnerProduct:
+        return cdot
+    if metric == DistanceType.CosineExpanded:
+        qn = torch.linalg.norm(q32, dim=1, keepdim=True)
+        cn = torch.linalg.norm(centers, dim=1)
+        return 1.0 - cdot / torch.clamp_min(qn * cn[None, :], 1e-30)
+    qn2 = (q32 * q32).sum(1, keepdim=True)
+    cn2 = (centers * centers).sum(1)
+    return qn2 + cn2[None, :] - 2.0 * cdot
+
+
+def coarse_margins(index, queries, p: int = 2) -> torch.Tensor:
+    """Per-query difficulty margin [m] in [0, 1] from the coarse quantizer
+    (reference ``ivf_flat.py:380-421``): the gap between the best and the
+    ``p``-th best center distance in min-close space, over the sum of
+    their magnitudes. ~0 means the best ``p`` lists are indistinguishable
+    (a hard query), large means the query sits in one list's basin.
+    Shared by IVF-Flat and IVF-PQ indexes (any index with ``centers`` and
+    ``metric``)."""
+    centers = index.centers
+    queries = as_tensor(queries, centers.device)
+    C = int(centers.shape[0])
+    if C < 2:
+        return torch.ones((queries.shape[0],), dtype=torch.float32,
+                          device=centers.device)
+    p = int(max(2, min(int(p), C)))
+    metric = DistanceType(int(index.metric))
+    coarse = coarse_distances(queries.float(), centers, metric)
+    if metric == DistanceType.InnerProduct:
+        coarse = -coarse                        # min-close space
+    vals, _ = select_k(coarse, p, select_min=True, device=centers.device)
+    d1, dp = vals[:, 0], vals[:, p - 1]
+    return torch.clamp((dp - d1) / (d1.abs() + dp.abs() + 1e-12), 0.0, 1.0)
+
+
 def adaptive_query_group(m: int, n_probes: int, n_lists: int,
                          base: int) -> int:
     """Queries per bucket for a batch: ``base``, shrinking toward 128 for
@@ -358,7 +413,8 @@ def _ivf_search(queries: torch.Tensor, centers: torch.Tensor,
                 metric_val: int, group: int, bucket_batch: int,
                 filter_nbits: int, compute_dtype: str = "bf16",
                 data_norms: Optional[torch.Tensor] = None,
-                filter_bits: Optional[torch.Tensor] = None):
+                filter_bits: Optional[torch.Tensor] = None,
+                route: str = "kernel"):
     metric = DistanceType(metric_val)
     select_min = is_min_close(metric)
     C, cap, d = storage.shape
@@ -367,27 +423,18 @@ def _ivf_search(queries: torch.Tensor, centers: torch.Tensor,
     sentinel = sentinel_for(metric)
 
     # coarse phase: queries x centers product + select n_probes
-    cdot = dist_dot(q32, centers.T)
-    if metric == DistanceType.InnerProduct:
-        coarse = cdot
-    elif metric == DistanceType.CosineExpanded:
-        qn = torch.linalg.norm(q32, dim=1, keepdim=True)
-        cn = torch.linalg.norm(centers, dim=1)
-        coarse = 1.0 - cdot / torch.clamp_min(qn * cn[None, :], 1e-30)
-    else:
-        qn2 = (q32 * q32).sum(1, keepdim=True)
-        cn2 = (centers * centers).sum(1)
-        coarse = qn2 + cn2[None, :] - 2.0 * cdot
-    _, probes = select_k(coarse, n_probes, select_min=select_min,
-                         device=q32.device)
+    _, probes = select_k(coarse_distances(q32, centers, metric), n_probes,
+                         select_min=select_min, device=q32.device)
 
     (bucket_list, bucket_q, pair_bucket, pair_pos, order, total, nb_pad) = \
         bucketize_pairs(probes, m, n_probes, C, group, bucket_batch)
 
     # scan: one (query group x list) step per bucket; per-list top-k cannot
-    # exceed the capacity, the merge over n_probes lists restores k
-    kl = min(k, cap, ivf_scan.K_MAX)
-    qv = q32.to(_DTYPES[compute_dtype])
+    # exceed the capacity, the merge over n_probes lists restores k (the
+    # route is "plain" past the kernel's K_MAX, backend_route)
+    kl = min(k, cap)
+    scan = (ivf_scan.ivf_list_scan_topk if route == "kernel"
+            else ivf_scan.ivf_list_scan_topk_plain)
     if metric == DistanceType.InnerProduct:
         mk, qaux, pn2 = ivf_scan.IP, None, None
     else:
@@ -401,9 +448,9 @@ def _ivf_search(queries: torch.Tensor, centers: torch.Tensor,
     keep = None
     if filter_bits is not None:
         keep = filter_keep(filter_bits, filter_nbits, indices).to(torch.int32)
-    out_d, cand_i = ivf_scan.ivf_list_scan_topk(
-        storage, indices, list_sizes, bucket_list, bucket_q, qv, qaux, pn2,
-        keep, k=kl, metric_kind=mk)
+    out_d, cand_i = scan(
+        storage, indices, list_sizes, bucket_list, bucket_q, q32, qaux, pn2,
+        keep, k=kl, metric_kind=mk, compute_dtype=compute_dtype)
     cand_d = -out_d if metric == DistanceType.InnerProduct else out_d
     cand_d = torch.where(torch.isinf(out_d), sentinel, cand_d)
     out_d, out_i = unbucketize_merge(
@@ -427,11 +474,11 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
     if cap == 0:
         raise ValueError(
             "index is empty — build with add_data_on_build or extend")
-    if k > n_probes * min(cap, ivf_scan.K_MAX):
+    if k > n_probes * cap:
         raise ValueError(
-            f"k={k} exceeds the scan's candidate pool "
-            f"n_probes*min(cap, {ivf_scan.K_MAX})="
-            f"{n_probes * min(cap, ivf_scan.K_MAX)}; raise n_probes")
+            f"k={k} exceeds n_probes*list_capacity={n_probes * cap}")
+    route = backend_route(search_params.scan_impl, kl=min(k, cap),
+                          k_max=ivf_scan.K_MAX)
     if str(search_params.compute_dtype) not in _DTYPES:
         raise ValueError(f"compute_dtype must be f32|bf16, got "
                          f"{search_params.compute_dtype!r}")
@@ -445,7 +492,7 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
         int(search_params.bucket_batch),
         0 if bits is None else int(bits.n_bits),
         str(search_params.compute_dtype), index.data_norms,
-        None if bits is None else bits.bits.to(dev))
+        None if bits is None else bits.bits.to(dev), route)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ list with a unique top-K), the same sample-then-gather draw of two-hop
 columns, the same node blocks and the same convergence window.
 
 The join runs through ``ops.graph_join.graph_local_join`` — the CUDA
-kernel on the card, its plain version on the CPU. ``_score`` and
+kernel on the card, its plain version on the CPU; ``join_impl`` takes the
+reference's names ("auto" / "pallas[:tile]" the kernel, "xla" /
+"pallas_interpret" the plain version on any device). ``_score`` and
 ``_merge_topk_unique`` are the reference's XLA join in plain PyTorch
 (keep-first dedup in id order), kept as the twin of the CPU oracle; the
 build itself does not call them.
@@ -29,9 +31,10 @@ import torch
 
 from raft_tpu_torch.core.resources import as_tensor, resolve_device
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
-from raft_tpu_torch.neighbors.common import merge_topk
+from raft_tpu_torch.neighbors.common import backend_route, merge_topk
 from raft_tpu_torch.neighbors.ivf_flat import _pack_lists
-from raft_tpu_torch.ops.graph_join import graph_local_join
+from raft_tpu_torch.ops.graph_join import graph_local_join, \
+    graph_local_join_plain
 from raft_tpu_torch.utils.precision import dist_dot
 
 _NO_ID = torch.iinfo(torch.int32).max   # sort-to-end sentinel for invalid ids
@@ -53,6 +56,8 @@ class IndexParams:
     # candidates pulled per node per iteration, sampled from the 2-hop pool
     n_candidates: int = 128
     seed: int = 0
+    # join backend, the reference's names (module docstring)
+    join_impl: str = "auto"
     # rows per join launch; 0 = _DEF_BLOCK_ROWS
     block_rows: int = 0
     # the device-side update-count window is read once every this many
@@ -125,7 +130,8 @@ def _make_rev(graph_i: torch.Tensor) -> torch.Tensor:
     return rev_i
 
 
-def _init_block(data, norms, init_i, start: int, rows: int, ip: bool):
+def _init_block(data, norms, init_i, start: int, rows: int, ip: bool,
+                join=None):
     """Exactly score + dedup one node block of the random init (the local
     join against an empty list)."""
     K = init_i.shape[1]
@@ -133,13 +139,13 @@ def _init_block(data, norms, init_i, start: int, rows: int, ip: bool):
     empty_d = torch.full((ib.shape[0], K), torch.inf, device=data.device)
     empty_i = torch.full((ib.shape[0], K), -1, dtype=torch.int32,
                          device=data.device)
-    return graph_local_join(
+    return (join or graph_local_join)(
         data[start:start + rows], ib, data, None if ip else norms, empty_d,
         empty_i, qn=None if ip else norms[start:start + rows], ip=ip)
 
 
 def _join_block(data, norms, graph_d, graph_i, pool, rev_i, cols,
-                start: int, rows: int, ip: bool):
+                start: int, rows: int, ip: bool, join=None):
     """One local join over node rows [start, start + rows).
 
     Sample-then-gather: ``cols`` selects (pool slot, neighbour slot)
@@ -160,7 +166,7 @@ def _join_block(data, norms, graph_d, graph_i, pool, rev_i, cols,
     node_ids = torch.arange(start, start + gi.shape[0], dtype=torch.int32,
                             device=data.device)
     cand = torch.where(cand == node_ids[:, None], -1, cand)   # no self loops
-    new_d, new_i = graph_local_join(
+    new_d, new_i = (join or graph_local_join)(
         data[sl], cand, data, None if ip else norms, gd, gi,
         qn=None if ip else norms[sl], ip=ip)
     return new_d, new_i, (new_i != gi).sum()
@@ -185,14 +191,17 @@ def build(params: IndexParams, dataset, device=None) -> Index:
     gen = torch.Generator(device=dev).manual_seed(int(params.seed))
     S = int(params.n_candidates)
     block = int(params.block_rows) or _DEF_BLOCK_ROWS
+    join = (None if backend_route(params.join_impl, "join_impl") == "kernel"
+            else graph_local_join_plain)
 
     # init: random neighbours, exactly scored + deduped
     init_i = torch.randint(0, n, (n, K), generator=gen, device=dev,
                            dtype=torch.int32)
     self_id = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
     init_i = torch.where(init_i == self_id, (init_i + 1) % n, init_i)
-    parts = _blocked(lambda s, r: _init_block(data, norms, init_i, s, r, ip),
-                     n, block)
+    parts = _blocked(
+        lambda s, r: _init_block(data, norms, init_i, s, r, ip, join), n,
+        block)
     graph_d = torch.cat([p[0] for p in parts])
     graph_i = torch.cat([p[1] for p in parts])
     del init_i, parts
@@ -208,7 +217,7 @@ def build(params: IndexParams, dataset, device=None) -> Index:
         cols = torch.randint(0, 2 * K * K, (S,), generator=gen, device=dev)
         parts = _blocked(
             lambda s, r: _join_block(data, norms, graph_d, graph_i, pool,
-                                     rev_i, cols, s, r, ip), n, block)
+                                     rev_i, cols, s, r, ip, join), n, block)
         graph_d = torch.cat([p[0] for p in parts])
         graph_i = torch.cat([p[1] for p in parts])
         updates.append(sum(p[2] for p in parts))

@@ -14,7 +14,10 @@
 // cores with a 4 x 4 register micro tile fed by 16-byte shared-memory
 // loads; bf16 operands are widened to f32 (exact products), so for them
 // the tensor cores (wgmma) are the next step. PERF.md splits its time by
-// stage (staging, dots, top-k selection).
+// stage (staging, dots, top-k selection). Operands: f32 or bf16 rows,
+// widened exactly; round_ops (bf16 queries, which arrive as exact bf16
+// values in f32) rounds f32 rows to bf16, without it f32 queries meet the
+// rows unrounded (f32 x bf16).
 #include "scan_topk.cuh"
 
 using namespace rtt;
@@ -27,7 +30,7 @@ fused_knn_topk_kernel(const float* __restrict__ queries,
                       const float* __restrict__ norms,
                       const int* __restrict__ keep, int m, int n, int d,
                       int k, int chunk_rows, int n_chunks, int n_qtiles,
-                      int metric, int round_rows, float* __restrict__ out_d,
+                      int metric, int round_ops, float* __restrict__ out_d,
                       int* __restrict__ out_i) {
   __shared__ Tiles t;
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -40,12 +43,13 @@ fused_knn_topk_kernel(const float* __restrict__ queries,
   if (threadIdx.x < QT) {
     const int q = q0 + threadIdx.x;
     t.qidx[threadIdx.x] = q < m ? q : -1;
+    t.qa[threadIdx.x] = (q < m && metric != kIP) ? qaux[q] : 0.f;
   }
   const int p_begin = ch * chunk_rows;
   const int p_end = min(n, p_begin + chunk_rows);
   __syncthreads();
-  scan_topk<T>(t, topd, topp, queries, qaux, x, norms, keep, p_begin, p_end,
-               d, k, metric, round_rows != 0);
+  scan_topk<T, false>(t, topd, topp, queries, nullptr, 1.f, x, norms, keep,
+                      p_begin, p_end, d, k, metric, round_ops != 0);
   __syncthreads();
 
   const size_t width = (size_t)n_chunks * k;
@@ -63,7 +67,7 @@ template <typename T>
 static int launch(const float* queries, const float* qaux, const T* x,
                   const float* norms, const int* keep, int m, int n, int d,
                   int k, int chunk_rows, int n_chunks, int metric,
-                  int round_rows, float* out_d, int* out_i,
+                  int round_ops, float* out_d, int* out_i,
                   cudaStream_t stream) {
   const int n_qtiles = (m + QT - 1) / QT;
   const size_t smem = topk_smem_bytes(k);
@@ -73,18 +77,20 @@ static int launch(const float* queries, const float* qaux, const T* x,
   if (err != cudaSuccess) return (int)err;
   fused_knn_topk_kernel<T><<<n_qtiles * n_chunks, NTHREADS, smem, stream>>>(
       queries, qaux, x, norms, keep, m, n, d, k, chunk_rows, n_chunks,
-      n_qtiles, metric, round_rows, out_d, out_i);
+      n_qtiles, metric, round_ops, out_d, out_i);
   return (int)cudaGetLastError();
 }
 
 // queries [m, d] f32; qaux [m] f32 (null for IP); x [n, d] f32 or bf16
 // (x_bf16); norms [n] f32 (null for IP); keep [n] int32 or null;
-// out_d / out_i [m, n_chunks * k]. Returns a cudaError_t code.
+// round_ops: the queries hold bf16 values and f32 rows are rounded to
+// bf16; out_d / out_i
+// [m, n_chunks * k]. Returns a cudaError_t code.
 extern "C" int fused_knn_topk(const void* queries, const void* qaux,
                               const void* x, int x_bf16, const void* norms,
                               const void* keep, int m, int n, int d, int k,
                               int chunk_rows, int n_chunks, int metric,
-                              int round_rows, void* out_d, void* out_i,
+                              int round_ops, void* out_d, void* out_i,
                               void* stream) {
   if (k < 1 || k > KMAX || m < 1 || n < 1 || d < 1 || chunk_rows < 1 ||
       n_chunks < 1)
@@ -98,7 +104,7 @@ extern "C" int fused_knn_topk(const void* queries, const void* qaux,
   auto s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     return launch(q, qa, static_cast<const __nv_bfloat16*>(x), xn, kp, m, n,
-                  d, k, chunk_rows, n_chunks, metric, 0, od, oi, s);
+                  d, k, chunk_rows, n_chunks, metric, round_ops, od, oi, s);
   return launch(q, qa, static_cast<const float*>(x), xn, kp, m, n, d, k,
-                chunk_rows, n_chunks, metric, round_rows, od, oi, s);
+                chunk_rows, n_chunks, metric, round_ops, od, oi, s);
 }

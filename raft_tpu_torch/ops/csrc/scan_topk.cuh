@@ -5,6 +5,15 @@
 // into each query's running top-k of (distance, position) — ties go to the
 // lower position, as in the TPU kernels' k-pass extraction.
 //
+// Operands: rows are f32, bf16 or int8 and are widened to f32 exactly as
+// they are staged; with `round_ops` f32 rows are then rounded to bf16 (the
+// reference's bf16 compute; bf16 and int8 rows are bf16 values already),
+// without it f32 queries meet the widened rows unrounded (f32 x bf16 rows
+// stays exact). Queries come in two modes, fixed at compile time: as the
+// caller gives them (already rounded to bf16 with `round_ops`), a plain
+// load; or, with STAGE_Q (the IVF-PQ residual queries), each component is
+// staged as ((q - center) * scale) and then rounded.
+//
 // Layout: 256 threads as 16 x 16, each owning a 4 x 4 micro tile of the
 // 64 x 64 (queries x rows) distance tile; the depth runs in slices of 32.
 // After each tile, warp w keeps the top-k of queries w, w+8, ...: lanes
@@ -27,6 +36,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace rtt {
 
 constexpr int QT = 64;          // queries per block
@@ -45,6 +56,7 @@ struct __align__(16) Tiles {
   float xs[DK][RT + PAD];       // row slice, transposed
   float dist[QT][RT + PAD];     // the tile's distances
   int qidx[QT];                 // global query index per slot, -1 = empty
+  float qa[QT];                 // per-slot qaux (||q||^2 L2, ||q|| cosine)
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -54,6 +66,21 @@ __device__ __forceinline__ float round_bf16(float v) {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
+
+// One staged query component: (q - center) * scale, then the operand
+// rounding. Each step rounds once (no contraction), so a plain version
+// that subtracts, multiplies and rounds in the same order gets the same
+// bits.
+__device__ __forceinline__ float stage_query(float q, const float* center,
+                                             int c, float scale,
+                                             bool round_ops) {
+  float v = center ? __fsub_rn(q, center[c]) : q;
+  v = __fmul_rn(v, scale);
+  return round_ops ? round_bf16(v) : v;
 }
 
 // Inserts (vd, vp) into the sorted list td/tp of length k. vp is larger
@@ -95,22 +122,23 @@ __device__ __forceinline__ void warp_insert(float* td, int* tp, int k,
 }
 
 // Scans positions [p_begin, p_end) of `rows` (row p at rows + p * d)
-// against the block's queries (t.qidx) and leaves each query's top-k in
-// topd / topp [QT * k], sorted by (distance, position); unfilled slots
-// hold (+inf, -1). `norms` and `keep` are indexed by position and may be
-// null (no norms for inner product; no filter). `qaux` is indexed by the
-// global query index: ||q||^2 for L2, ||q|| for cosine, unused for IP.
-// `round_rows` rounds f32 rows to bf16 as they are staged (the queries
-// arrive already rounded).
-template <typename T>
+// against the block's queries (t.qidx, with their qaux in t.qa, both set
+// by the caller) and leaves each query's top-k in topd / topp [QT * k],
+// sorted by (distance, position); unfilled slots hold (+inf, -1). `norms`
+// and `keep` are indexed by position and may be null (no norms for inner
+// product; no filter). With STAGE_Q queries are staged through
+// stage_query with `qcenter` (may be null), `qscale` and `round_ops`;
+// without it they are loaded as given. f32 rows are rounded to bf16 with
+// `round_ops`.
+template <typename T, bool STAGE_Q>
 __device__ void scan_topk(Tiles& t, float* topd, int* topp,
                           const float* __restrict__ queries,
-                          const float* __restrict__ qaux,
+                          const float* __restrict__ qcenter, float qscale,
                           const T* __restrict__ rows,
                           const float* __restrict__ norms,
                           const int* __restrict__ keep, int p_begin,
                           int p_end, int d, int k, int metric,
-                          bool round_rows) {
+                          bool round_ops) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -121,13 +149,10 @@ __device__ void scan_topk(Tiles& t, float* topd, int* topp,
     topd[i] = INFINITY;
     topp[i] = -1;
   }
+  __syncthreads();
   float qa[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = t.qidx[ty * 4 + i];
-    qa[i] = (q >= 0 && metric != kIP) ? qaux[q] : 0.f;
-  }
-  __syncthreads();
+  for (int i = 0; i < 4; ++i) qa[i] = t.qa[ty * 4 + i];
 
   for (int r0 = p_begin; r0 < p_end; r0 += RT) {
     float acc[4][4];
@@ -140,8 +165,12 @@ __device__ void scan_topk(Tiles& t, float* topd, int* topp,
       for (int e = tid; e < QT * DK; e += NTHREADS) {
         const int r = e / DK, c = e % DK;
         const int q = t.qidx[r];
-        t.qs[c][r] = (q >= 0 && d0 + c < d)
-                         ? queries[(size_t)q * d + d0 + c] : 0.f;
+        float v = 0.f;
+        if (q >= 0 && d0 + c < d) {
+          v = queries[(size_t)q * d + d0 + c];
+          if (STAGE_Q) v = stage_query(v, qcenter, d0 + c, qscale, round_ops);
+        }
+        t.qs[c][r] = v;
       }
       for (int e = tid; e < RT * DK; e += NTHREADS) {
         const int r = e / DK, c = e % DK;
@@ -149,7 +178,7 @@ __device__ void scan_topk(Tiles& t, float* topd, int* topp,
         float v = 0.f;
         if (p < p_end && d0 + c < d) {
           v = to_f32(rows[(size_t)p * d + d0 + c]);
-          if (round_rows) v = round_bf16(v);
+          if (std::is_same<T, float>::value && round_ops) v = round_bf16(v);
         }
         t.xs[c][r] = v;
       }

@@ -5,8 +5,11 @@ Replaces ``raft_tpu/ops/fused_topk.py:_fused_kernel`` (``pallas_call`` at
 k nearest rows in min-space — L2 ``max(||q||^2 + ||x||^2 - 2 q.x, 0)``,
 inner product ``-q.x``, cosine ``1 - q.x / max(||q|| ||x||, 1e-30)`` —
 with f32 accumulation, ties to the lower column, and rows short of k valid
-candidates padded with (+inf, -1). bf16 operands (either input in bf16)
-are both rounded to bf16 and multiplied exactly in f32.
+candidates padded with (+inf, -1). Operands follow the queries' type, as
+the reference's brute force does (``brute_force.py:231-238``): bf16
+queries round both operands to bf16; f32 queries meet f32 or bf16 rows
+unrounded (bf16 rows widen exactly). Products are exact in f32 either way
+for bf16 pairs, and summed in f32.
 
 The kernel (``csrc/fused_knn_topk.cu``) never writes the [m, n] distance
 matrix: each block keeps its queries' top-k over one chunk of rows and
@@ -42,11 +45,10 @@ _RT = 64             # rows per tile (csrc/scan_topk.cuh RT)
 _TARGET_BLOCKS = 2048
 
 
-def _operands(queries: torch.Tensor, dataset: torch.Tensor):
-    """(f32 queries, whether the compute type is bf16)."""
-    bf16 = torch.bfloat16 in (queries.dtype, dataset.dtype)
-    q = queries.float()
-    return (round_bf16(q) if bf16 else q), bf16
+def _operands(queries: torch.Tensor):
+    """(f32 queries, whether the compute type is bf16): bf16 iff the
+    queries are bf16."""
+    return queries.float(), queries.dtype == torch.bfloat16
 
 
 def _aux(q32: torch.Tensor, metric_kind: int, qaux):
@@ -105,7 +107,7 @@ def _launch(queries, dataset, k, metric_kind, norms, qaux, keep):
         raise ValueError("queries and dataset must be on the same device")
     m, d = queries.shape
     n = dataset.shape[0]
-    q32, bf16 = _operands(queries, dataset)
+    q32, bf16 = _operands(queries)
     q32 = q32.contiguous()
     x = dataset if dataset.dtype in (torch.float32, torch.bfloat16) \
         else dataset.float()
@@ -153,7 +155,7 @@ def fused_knn_topk_plain(queries: torch.Tensor, dataset: torch.Tensor,
     merged into a running top-k (``blocked_topk``, ties to the lower
     column)."""
     _check(queries, dataset, k, metric_kind)
-    q32, bf16 = _operands(queries, dataset)
+    q32, bf16 = _operands(queries)
     xn = _norms(dataset, metric_kind, bf16, norms)
     qa = _aux(q32, metric_kind, qaux)
 

@@ -194,6 +194,15 @@ def test_port_build_end_to_end(reference, reference_ids):
 
 
 def test_ivf_pq_build_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cagra.build(cagra.IndexParams(), np.zeros((10, 8), np.float32),
-                    device="cpu")
+    """The default IVF-PQ graph build is ported (it raised before IVF-PQ
+    was); an unknown build algorithm raises."""
+    with pytest.raises(ValueError, match="graph_build_algo"):
+        cagra.build(cagra.IndexParams(graph_build_algo=7),
+                    np.zeros((10, 8), np.float32), device="cpu")
+    x = np.random.default_rng(3).standard_normal((300, 8)).astype(
+        np.float32)
+    idx = cagra.build(cagra.IndexParams(intermediate_graph_degree=16,
+                                        graph_degree=8), x, device="cpu")
+    g = np_(idx.graph)
+    assert g.shape == (300, 8) and g.min() >= 0
+    assert not (g == np.arange(300)[:, None]).any()
