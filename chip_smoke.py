@@ -15,12 +15,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
              keep filter, all metrics; f32 x f32, f32 x bf16 and bf16 x
              bf16 operands for kernels 1 and 2; kernel 2's int8 arm with
              residual queries, L2 and inner product, k from 1 to 256, rot
-             20 to 128, bf16 and f32 operands, empty slots; for the
+             20 to 128, bf16 and f32 operands, empty slots; its packed
+             arms — i4, RaBitQ sign bits with the row scale (rot off a
+             whole word too), pq4 (bit for bit) — and the int8 arm with
+             per-list scales on the same kinds of cases; for the
              nn-descent join C < K, K = 1, K = 128, d off a multiple of 4
              and duplicate ids; for the beam step both arms, emitted
              candidates, m off any tile and masked parents), then at the
              paths' own shapes; then a small IVF-Flat, a small IVF-PQ (L2
-             and inner product) and a small CAGRA search on the card
+             and inner product, then one per cache rung: i4, pq4,
+             RaBitQ, raw i4, raw i8) and a small CAGRA search on the card
              against the same index searched on the CPU;
 4. IVF-Flat path — on 1,000,000 x 128 f32 SIFT-like rows made on the card
              from a seed: build with n_lists=1024, search 10,000 queries
@@ -46,13 +50,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
              queries with n_probes=128 and k=10: recall@10 on 1,000
              queries (>= 0.85), QPS, launches per search, a profile; the
              refined search (30 candidates refined exactly to 10, recall
-             >= 0.95). Every kernel of a path must have launched during
-             that path's run (counts set to 0 just before it, read just
-             after);
-7. report  — each kernel (and kernel 2's int8 arm) timed at its path's
+             >= 0.95);
+7. IVF-PQ rungs — the compressed caches at the same configuration, on
+             the same rows and queries, one index at a time: (a)
+             cache_dtype="i4"; (b) attach_raw_residual_cache(dtype="i4")
+             on the default index; (c) pq_dim=96, pq_bits=4,
+             cache_dtype="pq4"; (d) attach_rabitq_cache on the default
+             index, searched at k=40. Each: build / attach seconds by
+             part, cache GB, recall@10 raw (>= 0.85 for a-c) and refined
+             (30 candidates, exact refine; >= 0.95 for a-c; RaBitQ from
+             40 and from 80 candidates, the smaller that reaches
+             RABITQ_REFINED_RECALL_FLOOR, or the run fails), QPS, launches per
+             search, a profile, and the arm timed at its shapes. Every
+             kernel of a path must have launched during that path's run
+             (counts set to 0 just before it, read just after);
+8. report  — each kernel (and kernel 2's int8 arm) timed at its path's
              shapes beside its plain version and its bound (the scan
              kernels also by stage: staging loads and epilogue, dots,
-             top-k selection); then the nvidia-smi line, one JSON line of
+             top-k selection; the packed arms were timed on their rungs'
+             paths); then the nvidia-smi line, one JSON line of
              per-kernel numbers, and last the result line.
 
 Tolerances: the brute-force, list-scan and join kernels and their plain
@@ -60,10 +76,11 @@ versions sum f32 products in different orders, so distances agree to
 1e-4 relative plus an absolute term (1e-4; for the join 2e-6 of the
 expanded form's terms, ||q||^2 + ||c||^2, whose rounding it inherits),
 and ids agree exactly wherever a distance is not within that tolerance of
-its neighbour in the row (a tie). The int8 arm's residual queries, their
-qaux and the operand rounding are computed in one order by both, so only
-the dots' sum order differs. The beam step and its plain version round
-and sum in one fixed order, so they must agree bit for bit.
+its neighbour in the row (a tie). The int8, i4 and sign-bit arms'
+residual queries, their qaux and the operand rounding are computed in one
+order by both, so only the dots' sum order differs. The pq4 arm, and the
+beam step, and their plain versions round and sum in one fixed order, so
+they must agree bit for bit.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -87,6 +104,18 @@ F32, BF16 = torch.float32, torch.bfloat16
 RECALL_FLOOR = 0.90
 IVF_PQ_RECALL_FLOOR = 0.85         # IVF-PQ at the DEEP-10M config
 REFINED_RECALL_FLOOR = 0.95        # the same, 3k candidates refined to k
+# the RaBitQ rung's first stage (4k candidates) refined to k: the
+# reference's recall on that recipe at CPU size, held by
+# tests/test_torch_ivf_pq_rungs.py::test_rabitq_refined_recipe_sets_the_smoke_gate
+RABITQ_REFINED_RECALL_FLOOR = 0.80
+# the RaBitQ rung's first-stage widths, as multiples of k, each refined
+# exactly to k: bench.py:428-450's 4, then doubled. The gate holds the
+# smallest that clears RABITQ_REFINED_RECALL_FLOOR, the reference's rule
+# for this pipeline (raft_tpu/tuning/microbench.py:464). At 4 the
+# recipe's refined recall falls as the rows grow, in the reference as in
+# the port (tests/torch_rung_scaling.py), and at 10M rows it is under
+# the floor (PERF.md)
+RABITQ_REFINE_RATIOS = (4, 8)
 # nn-descent iterations of the CAGRA build: at the reference's default of
 # 20, the sampled join has not converged at 1M rows (PERF.md, PR 5)
 NN_DESCENT_NITER = 80
@@ -350,6 +379,114 @@ def phase_small_parity_int8(dev, g) -> None:
                                                    q_rot, None, xn, kp, **kw)
         compare(f"ivf_list_scan_topk int8 rot={rot} k={k} metric={mk} "
                 f"keep={filt} {cd}", kd, ki, pd, pi)
+    phase_small_parity_packed(dev, g)
+
+
+def packed_case(g, dev, arm, C, cap, rot, p=0, pl=0):
+    """Random storage of one kernel-2 arm on the card with its sidecars:
+    (storage, the scan's keyword arguments, the queries' padded width)."""
+    def words(nw):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (C, nw, cap),
+                             generator=g, device=dev, dtype=torch.int32)
+
+    if arm == "i8":
+        storage = torch.randint(-128, 128, (C, cap, rot), generator=g,
+                                device=dev, dtype=torch.int8)
+        return storage, dict(scale=torch.rand(
+            C, rot, generator=g, device=dev) * 0.05 + 0.01), rot
+    if arm == "i4":
+        return words(rot // 8), dict(packed_i4=True, scale=torch.rand(
+            C, rot, generator=g, device=dev) * 0.2 + 0.05), rot
+    if arm == "bits":
+        nw = -(-rot // 32)
+        return words(nw), dict(packed_bits=True, row_scale=torch.rand(
+            C, cap, generator=g, device=dev) + 0.5), nw * 32
+    return words(-(-p // 8)), dict(pq_centers=torch.randn(
+        p, 16, pl, generator=g, device=dev)), p * pl
+
+
+def phase_small_parity_packed(dev, g) -> None:
+    """Kernel 2's packed arms (i4, RaBitQ sign bits with the row scale,
+    pq4) and the int8 arm with per-list scales against their plain
+    versions: L2 and inner product, with and without keep, k from 1 to
+    256, rot 24 to 128 (RaBitQ at 40 and 100, off a whole word), bf16 and
+    f32 operands, empty slots, an empty list and one shorter than k. The
+    pq4 arm and its plain version sum in one order, so they must agree
+    bit for bit; the others sum the dots in other orders (the module's
+    tolerance). A pq4 call whose tables overflow a block's shared memory
+    must be refused by the launch, and the next launch must still run."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    log("parity (small, ragged): ivf_list_scan_topk packed arms and "
+        "per-list scales")
+    C, cap, nb, G, m = 12, 384, 30, 256, 400
+    L2, IP = ivf_scan.L2, ivf_scan.IP
+    for arm, rot, p, pl, k, mk, filt, cd in [
+            ("i4", 24, 0, 0, 1, L2, False, "bf16"),
+            ("i4", 40, 0, 0, 10, IP, True, "f32"),
+            ("i4", 96, 0, 0, 64, L2, True, "bf16"),
+            ("i4", 128, 0, 0, 256, L2, False, "f32"),
+            ("bits", 40, 0, 0, 10, L2, True, "bf16"),
+            ("bits", 96, 0, 0, 256, IP, False, "f32"),
+            ("bits", 100, 0, 0, 1, L2, False, "bf16"),
+            ("bits", 128, 0, 0, 64, L2, True, "f32"),
+            ("pq4", 24, 24, 1, 10, L2, False, "bf16"),
+            ("pq4", 96, 96, 1, 256, L2, True, "bf16"),
+            ("pq4", 96, 48, 2, 64, IP, False, "f32"),
+            ("pq4", 128, 32, 4, 1, L2, True, "f32"),
+            ("i8", 40, 0, 0, 10, L2, True, "bf16"),
+            ("i8", 96, 0, 0, 256, IP, False, "f32")]:
+        storage, kw, width = packed_case(g, dev, arm, C, cap, rot, p, pl)
+        ids = torch.arange(C * cap, dtype=torch.int32,
+                           device=dev).reshape(C, cap) * 7 + 3
+        sizes = torch.randint(0, cap + 1, (C,), generator=g, device=dev,
+                              dtype=torch.int32)
+        sizes[0], sizes[1] = 0, 5
+        bl = torch.randint(0, C, (nb,), generator=g, device=dev,
+                           dtype=torch.int32)
+        bl[:2] = torch.tensor([0, 1], device=dev)
+        bq = torch.randint(-1, m, (nb, G), generator=g, device=dev,
+                           dtype=torch.int32)
+        pad = width - rot
+        q = torch.nn.functional.pad(
+            torch.randn(m, rot, generator=g, device=dev) * 3, (0, pad))
+        c = torch.nn.functional.pad(
+            torch.randn(C, rot, generator=g, device=dev), (0, pad))
+        kp = ((torch.rand(C, cap, generator=g, device=dev) < 0.8).int()
+              if filt else None)
+        kw.update(k=k, metric_kind=mk, compute_dtype=cd)
+        xn = None
+        if mk == L2:
+            kw["centers"] = c
+            xn = torch.rand(C, cap, generator=g, device=dev) * 100 + 10
+        kd, ki = ivf_scan.ivf_list_scan_topk(storage, ids, sizes, bl, bq, q,
+                                             None, xn, kp, **kw)
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(storage, ids, sizes, bl,
+                                                   bq, q, None, xn, kp, **kw)
+        name = (f"ivf_list_scan_topk {arm} rot={rot}"
+                + (f" p={p}" if arm == "pq4" else "")
+                + f" k={k} metric={mk} keep={filt} {cd}")
+        compare(name, kd, ki, pd, pi)
+        if arm == "pq4" and not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+            raise SmokeFailure(f"{name}: not bit for bit")
+    # pq4 tables past a block's shared memory (16 queries x 256 subspaces
+    # x 16 f32 entries, k = 256): the launch must refuse with its CUDA
+    # error, and leave no error behind for the next launch
+    big, big_kw, _ = packed_case(g, dev, "pq4", C, cap, 256, 256, 1)
+    try:
+        ivf_scan.ivf_list_scan_topk(
+            big, ids, sizes, bl, bq, torch.zeros(m, 256, device=dev), None,
+            None, None, k=256, metric_kind=IP, compute_dtype="f32", **big_kw)
+    except RuntimeError as e:
+        log(f"  ivf_list_scan_topk pq4 p=256 k=256 refused: {e}")
+    else:
+        raise SmokeFailure("ivf_list_scan_topk pq4 p=256 k=256 launched past "
+                           "a block's shared memory")
+    again = ivf_scan.ivf_list_scan_topk(storage, ids, sizes, bl, bq, q, None,
+                                        xn, kp, **kw)
+    if not (torch.equal(again[0], kd) and torch.equal(again[1], ki)):
+        raise SmokeFailure("ivf_list_scan_topk after the refused launch "
+                           "differs from the same call before it")
 
 
 def compare_exact(name, outs_k, outs_p) -> None:
@@ -656,15 +793,70 @@ def stage_split(name: str, kern, full_ms: float) -> None:
         f"builds {ms[0]:.3f} and {ms[1]:.3f} ms)")
 
 
-def measure_ivf(args, kw, launches, arm: str = "") -> dict:
-    """Kernel 2 at a path's captured inputs: agreement with the plain
-    version, time, stage split, plain time and bound. ``arm`` names the
-    storage arm in the report ("" for the float arm)."""
+# the TPU kernel's arm each kernel-2 storage arm replaces
+_ARM_SITE = {"": "raft_tpu/ops/ivf_scan.py:198",
+             "int8": "raft_tpu/ops/ivf_scan.py:302",
+             "i4": "raft_tpu/ops/ivf_scan.py:281",
+             "raw": "raft_tpu/ops/ivf_scan.py:281",
+             "pq4": "raft_tpu/ops/ivf_scan.py:221",
+             "rabitq": "raft_tpu/ops/ivf_scan.py:256"}
+
+
+def scan_work(args, kw):
+    """The least work of one kernel-2 call on this run's data: (bytes,
+    operations, peak operations per second, what the operations are).
+    Probed lists are read once (rows, ids, norms, row scales), queries,
+    list sidecars, bucket tables and outputs once; operations count the
+    valid (query, row) pairs only: 2 d per pair on the dense, int8, i4 and
+    sign-bit arms (bf16 tensor-core rate under bf16 operands, else f32),
+    and on the pq4 arm p table adds per pair plus 2 pq_len per table entry
+    of each valid (bucket, query) (f32 CUDA-core rate)."""
     from raft_tpu_torch.ops import ivf_scan
 
     (storage, indices, list_sizes, bucket_list, bucket_q, queries, qaux,
      norms, keep) = (list(args) + [None] * 9)[:9]
-    k, mk = kw["k"], kw["metric_kind"]
+    pqc = kw.get("pq_centers")
+    kind = ivf_scan.storage_kind(storage, kw.get("packed_i4", False),
+                                 kw.get("packed_bits", False), pqc)
+    C, cap, d = ivf_scan._geometry(storage, kind, pqc)
+    k = kw["k"]
+    sizes = list_sizes.long()
+    valid_q = (bucket_q >= 0).sum(1).long()
+    pairs = float((valid_q * sizes[bucket_list.long()]).sum())
+    probed = torch.zeros(C, dtype=torch.bool, device=storage.device)
+    probed[bucket_list.long()[valid_q > 0]] = True
+    probed_rows = int(sizes[probed].sum())
+    nb, G = bucket_q.shape
+    row_bytes = (d * storage.element_size() if kind < ivf_scan.I4
+                 else storage.shape[1] * 4)
+    row_bytes += 4 + (4 if norms is not None else 0) + (
+        4 if kw.get("row_scale") is not None else 0)
+    scale = kw.get("scale")
+    side = ((C * d * 4 if kw.get("centers") is not None else 0)
+            + (C * d * 4 if isinstance(scale, torch.Tensor) else 0)
+            + (pqc.numel() * 4 if pqc is not None else 0))
+    bytes_ = (probed_rows * row_bytes + queries.shape[0] * d * 4
+              + (queries.shape[0] * 4 if qaux is not None else 0) + side
+              + nb * 4 + nb * G * 4 + C * 4 + nb * G * k * 8)
+    cd = kw.get("compute_dtype") or (
+        "bf16" if queries.dtype == torch.bfloat16 else "f32")
+    if kind == ivf_scan.PQ4:
+        p, _, pl = pqc.shape
+        ops = pairs * p + float(valid_q.sum()) * p * 16 * pl * 2
+        return bytes_, ops, H100_F32_FLOPS, f"{p} table adds a pair, f32"
+    peak = H100_BF16_FLOPS if cd == "bf16" else H100_F32_FLOPS
+    return bytes_, 2.0 * d * pairs, peak, f"{cd} operands"
+
+
+def measure_ivf(args, kw, launches, arm: str = "") -> dict:
+    """Kernel 2 at a path's captured inputs: agreement with the plain
+    version, time, stage split (not for the pq4 arm, whose kernel has no
+    stage builds), plain time and bound. ``arm`` names the storage arm
+    in the report ("" for the float arm)."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    storage, bucket_q, queries = args[0], args[4], args[5]
+    k = kw["k"]
     name = "ivf_list_scan_topk" + (f":{arm}" if arm else "")
     log(f"kernel {name} at its path's shapes: storage "
         f"{tuple(storage.shape)} {storage.dtype}, buckets "
@@ -682,45 +874,26 @@ def measure_ivf(args, kw, launches, arm: str = "") -> dict:
     kd, ki = kern()
     pd, pi = plain()
     err = compare(f"{name} (path shapes)", kd, ki, pd, pi)
+    exact = torch.equal(kd, pd) and torch.equal(ki, pi)
+    log(f"  {name}: kernel and plain version "
+        f"{'equal bit for bit' if exact else 'differ within tolerance'}")
     del kd, ki, pd, pi
     ms = cuda_ms(kern, reps=10)
-    stage_split(name, kern, ms)
+    if kw.get("pq_centers") is None:
+        stage_split(name, kern, ms)
     plain_ms = cuda_ms(plain, reps=2)
     ivf_scan.ivf_list_scan_topk.launches = before   # measurement launches
 
-    # the least time for this run's data: probed lists read once (rows,
-    # ids, norms), queries, bucket tables and outputs once; dots for the
-    # valid (query, list) pairs only
-    C, cap, d = storage.shape
-    sizes = list_sizes.long()
-    valid_q = (bucket_q >= 0).sum(1).long()
-    rows_scanned = (valid_q * sizes[bucket_list.long()]).sum()
-    probed = torch.zeros(C, dtype=torch.bool, device=storage.device)
-    probed[bucket_list.long()[valid_q > 0]] = True
-    probed_rows = int(sizes[probed].sum())
-    nb, G = bucket_q.shape
-    centers = kw.get("centers")
-    bytes_ = (probed_rows * (d * storage.element_size() + 4
-                             + (4 if norms is not None else 0))
-              + queries.shape[0] * d * 4
-              + (queries.shape[0] * 4 if qaux is not None else 0)
-              + (C * d * 4 if centers is not None else 0)
-              + nb * 4 + nb * G * 4 + C * 4 + nb * G * k * 8)
-    flops = 2.0 * d * float(rows_scanned)
-    cd = kw.get("compute_dtype") or (
-        "bf16" if queries.dtype == torch.bfloat16 else "f32")
-    bf16 = cd == "bf16"
-    peak = H100_BF16_FLOPS if bf16 else H100_F32_FLOPS
+    bytes_, ops, peak, what = scan_work(args, kw)
     t_bytes = bytes_ / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = ops / peak * 1e3
     log(f"  {name}: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain; "
-        f"{flops / 1e9:.1f} GFLOP ({cd} operands), "
+        f"{ops / 1e9:.1f} G operations ({what}), "
         f"{bytes_ / 1e9:.3f} GB -> bound {max(t_bytes, t_ops):.3f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
     return {"name": name, "route": "cuda",
             "source": "raft_tpu_torch/ops/csrc/ivf_list_scan_topk.cu",
-            "replaces": ("raft_tpu/ops/ivf_scan.py:302" if arm
-                         else "raft_tpu/ops/ivf_scan.py:198"),
+            "replaces": _ARM_SITE[arm.split()[0] if arm else ""],
             "launches": launches, "max_abs_err": err["max_abs_err"],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -1056,11 +1229,54 @@ def phase_small_ivf_pq(dev) -> None:
         kd, ki = ivf_pq.search(sp, ix, q, 10)
         if ivf_scan.ivf_list_scan_topk.launches != before + 1:
             raise SmokeFailure("small IVF-PQ search did not launch kernel 2")
-        cpu_ix = dataclasses.replace(ix, **{
-            f.name: getattr(ix, f.name).cpu() for f in dataclasses.fields(ix)
-            if isinstance(getattr(ix, f.name), torch.Tensor)})
-        pd, pi = ivf_pq.search(sp, cpu_ix, q.cpu(), 10)
+        pd, pi = ivf_pq.search(sp, cpu_copy(ix), q.cpu(), 10)
         compare(f"ivf_pq.search 20k x 96, 64 lists, {metric.name}",
+                kd.cpu(), ki.cpu(), pd, pi)
+
+
+def cpu_copy(ix):
+    """The index with every tensor field moved to the CPU."""
+    return dataclasses.replace(ix, **{
+        f.name: getattr(ix, f.name).cpu() for f in dataclasses.fields(ix)
+        if isinstance(getattr(ix, f.name), torch.Tensor)})
+
+
+def phase_small_ivf_pq_rungs(dev) -> None:
+    """Each compressed cache rung built on the card through the user's
+    entry points (``build(cache_dtype=...)``, ``attach_rabitq_cache``,
+    ``attach_raw_residual_cache``), searched there (kernel 2's arm) and,
+    over the same index, on the CPU (its plain version)."""
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import ivf_scan
+
+    x = sift_like(20_000, 96, seed=9, device=dev)
+    q = sift_like(300, 96, seed=10, device=dev)
+    kw = dict(n_lists=64, kmeans_n_iters=10)
+    base = ivf_pq.build(ivf_pq.IndexParams(pq_dim=48, **kw), x, device=dev)
+    log("parity (small IVF-PQ search per cache rung, card vs CPU):")
+    for kind, make in [
+            ("i4", lambda: ivf_pq.build(ivf_pq.IndexParams(
+                pq_dim=48, cache_dtype="i4", **kw), x, device=dev)),
+            ("pq4", lambda: ivf_pq.build(ivf_pq.IndexParams(
+                pq_dim=96, pq_bits=4, cache_dtype="pq4", **kw), x,
+                device=dev)),
+            ("rabitq", lambda: ivf_pq.attach_rabitq_cache(base)),
+            ("raw i4", lambda: ivf_pq.attach_raw_residual_cache(
+                base, x, dtype="i4")),
+            ("raw i8", lambda: ivf_pq.attach_raw_residual_cache(
+                base, x, dtype="i8"))]:
+        ix = make()
+        if ix.cache_kind != kind.split()[-1]:
+            raise SmokeFailure(f"small IVF-PQ {kind}: cache "
+                               f"{ix.cache_kind}")
+        sp = ivf_pq.SearchParams(n_probes=8)
+        before = ivf_scan.ivf_list_scan_topk.launches
+        kd, ki = ivf_pq.search(sp, ix, q, 10)
+        if ivf_scan.ivf_list_scan_topk.launches != before + 1:
+            raise SmokeFailure(f"small IVF-PQ {kind} search did not launch "
+                               "kernel 2")
+        pd, pi = ivf_pq.search(sp, cpu_copy(ix), q.cpu(), 10)
+        compare(f"ivf_pq.search 20k x 96, 64 lists, {kind} cache",
                 kd.cpu(), ki.cpu(), pd, pi)
 
 
@@ -1205,10 +1421,143 @@ def ivf_pq_path(dev, n=10_000_000, d=96, nq=10_000, n_lists=1024,
     if rrec < REFINED_RECALL_FLOOR:
         raise SmokeFailure(f"refined IVF-PQ recall {rrec:.4f} < "
                            f"{REFINED_RECALL_FLOOR}")
-    del x, index
     return {"captured": captured["scan"], "launches": launches,
             "build_s": build_s, "secs": secs, "recall": rec,
-            "qps": nq / med, "refined_recall": rrec, "refined_qps": nq / rmed}
+            "qps": nq / med, "refined_recall": rrec, "refined_qps": nq / rmed,
+            "x": x, "q": q, "truth": truth, "index": index}
+
+
+def ivf_pq_rungs_path(dev, x, q, truth, base, k=10, n_probes=128,
+                      batch_size=2_000_000) -> dict:
+    """IVF-PQ's compressed cache rungs at the DEEP-10M configuration, on
+    the IVF-PQ path's rows and queries, one index at a time (each freed
+    before the next): (a) ``cache_dtype="i4"``, the decoded i4 cache;
+    (b) ``attach_raw_residual_cache(dtype="i4")`` on the default index;
+    (c) ``pq_dim=96, pq_bits=4, cache_dtype="pq4"`` (EQUAL_BYTES_r05.json's
+    pq4 index); (d) ``attach_rabitq_cache`` on the default index, searched
+    at 4k = 40 (bench.py:428-450). For each: build or attach seconds by
+    part and cache GB, recall@k raw and refined (3k candidates; RaBitQ
+    each width of ``RABITQ_REFINE_RATIOS``; exact refine), QPS (median of
+    5), kernel launches per search and a profile; the arm measured at the
+    path's shapes. A rung under its recall gate is listed in ``"failed"``
+    (the run fails after its report, so every other phase still runs)."""
+    from raft_tpu_torch.neighbors import ivf_pq, refine
+    from raft_tpu_torch.ops import ivf_scan
+
+    sp = ivf_pq.SearchParams(n_probes=n_probes)
+    n_lists = base.n_lists
+    # the rungs share the default index's codes; its int8 cache goes
+    base = dataclasses.replace(base, recon_cache=None)
+    torch.cuda.empty_cache()
+    build_parts = [(ivf_pq, "_quantizer_index", "train"),
+                   (ivf_pq, "encode", "encode"), (ivf_pq, "_pack_lists",
+                                                  "pack"),
+                   (ivf_pq, "_rec_norms", "rec_norms"),
+                   (ivf_pq, "_attach_cache", "cache")]
+
+    def build(**kw):
+        return ivf_pq.build(ivf_pq.IndexParams(
+            n_lists=n_lists, kmeans_trainset_fraction=0.1, **kw), x,
+            batch_size=batch_size, device=dev)
+
+    rungs = [
+        ("i4", "i4", build_parts,
+         lambda: build(pq_dim=48, pq_bits=8, cache_dtype="i4")),
+        ("raw i4", "i4", [(ivf_pq, "attach_raw_residual_cache", "attach")],
+         lambda: ivf_pq.attach_raw_residual_cache(base, x, dtype="i4")),
+        ("pq4", "pq4", build_parts,
+         lambda: build(pq_dim=96, pq_bits=4, cache_dtype="pq4")),
+        ("rabitq", "rabitq", [(ivf_pq, "attach_rabitq_cache", "attach")],
+         lambda: ivf_pq.attach_rabitq_cache(base)),
+    ]
+    out = {"failed": []}
+    for name, kind, parts, make in rungs:
+        kc = 4 * k if kind == "rabitq" else k          # first-stage width
+        secs, captured = {}, {}
+        saved = timed_patches(secs, parts)
+        orig, rec = record_scan(captured, lambda a, kw: True)
+        try:
+            t0 = time.perf_counter()
+            index = make()
+            torch.cuda.synchronize()
+            make_s = time.perf_counter() - t0
+            out_d, out_i = ivf_pq.search(sp, index, q, kc)
+            torch.cuda.synchronize()
+            launches = rec.launches
+        finally:
+            ivf_scan.ivf_list_scan_topk = orig
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+        if index.cache_kind != kind:
+            raise SmokeFailure(f"IVF-PQ rung {name}: cache "
+                               f"{index.cache_kind!r}, not {kind!r}")
+        cache_gb = sum(t.numel() * t.element_size() for t in (
+            index.recon_cache, index.cache_scales, index.cache_qnorms,
+            index.cache_fac) if t is not None) / 1e9
+        log(f"IVF-PQ rung {name} (DEEP-10M config): cache {kind} "
+            f"{tuple(index.recon_cache.shape)} {index.recon_cache.dtype}, "
+            f"{cache_gb:.3f} GB with its sidecars; "
+            f"{'build' if len(parts) > 1 else 'attach'} {make_s:.2f} s = "
+            + " + ".join(f"{part} {secs.get(part, 0.0):.2f}"
+                         for _, _, part in parts))
+        if launches <= 0:
+            raise SmokeFailure(f"ivf_list_scan_topk never launched on the "
+                               f"IVF-PQ {name} path")
+        if out_d.shape != (q.shape[0], kc) or \
+                not bool(torch.isfinite(out_d).all()) or \
+                bool((out_i < 0).any()):
+            raise SmokeFailure(f"IVF-PQ {name} search returned non-finite "
+                               "or missing neighbours")
+        raw = recall_of(out_i[:truth.shape[0], :k], truth)
+        before = ivf_scan.ivf_list_scan_topk.launches
+        times = timed_batches(lambda: ivf_pq.search(sp, index, q, kc))
+        per_search = (ivf_scan.ivf_list_scan_topk.launches - before) / 6
+        med = statistics.median(times)
+        refined_by = {}
+        for ratio in (RABITQ_REFINE_RATIOS if kind == "rabitq" else (3,)):
+            def refined(rk=ratio * k):
+                _, cand = ivf_pq.search(sp, index, q, rk)
+                return refine.refine(x, q, cand, k, device=dev)
+
+            rmed = statistics.median(timed_batches(refined))
+            _, rid = refined()
+            refined_by[ratio] = (recall_of(rid[:truth.shape[0]], truth),
+                                 q.shape[0] / rmed)
+            del rid
+        log(f"  search at k={kc}: {q.shape[0]} queries in {med * 1e3:.2f} ms "
+            f"(median of 5) -> {q.shape[0] / med:.1f} QPS; batches ms "
+            f"{[round(t * 1e3, 3) for t in times]}; kernel launches per "
+            f"search {per_search:g} ({launches} during the path); "
+            f"recall@{k} {raw:.4f}")
+        for ratio, (rrec, rqps) in refined_by.items():
+            log(f"  refined ({ratio * k} candidates, exact refine to {k}): "
+                f"{rqps:.1f} QPS (median of 5); recall@{k} {rrec:.4f}")
+        profile_search(lambda: ivf_pq.search(sp, index, q, kc))
+        rrec, rqps = next(iter(refined_by.values()))
+        matched = None
+        if kind == "rabitq":
+            matched = next((r for r, (rr, _) in refined_by.items()
+                            if rr >= RABITQ_REFINED_RECALL_FLOOR), None)
+            if matched is None:
+                out["failed"].append(
+                    f"IVF-PQ {name} refined recall " + ", ".join(
+                        f"{rr:.4f} from {r * k}" for r, (rr, _)
+                        in refined_by.items())
+                    + f" < {RABITQ_REFINED_RECALL_FLOOR}")
+        elif raw < IVF_PQ_RECALL_FLOOR or rrec < REFINED_RECALL_FLOOR:
+            out["failed"].append(
+                f"IVF-PQ {name} recall {raw:.4f} (floor "
+                f"{IVF_PQ_RECALL_FLOOR}), refined {rrec:.4f} (floor "
+                f"{REFINED_RECALL_FLOOR})")
+        a, kw = captured["scan"]
+        kern = measure_ivf(a, kw, launches, arm=name)
+        out[name] = {"kernel": kern, "make_s": make_s, "secs": secs,
+                     "cache_gb": cache_gb, "recall": raw, "qps": q.shape[0]
+                     / med, "refined_recall": rrec, "refined_qps": rqps,
+                     "refined_by": refined_by, "matched": matched}
+        del index, captured, a, kw, out_d, out_i
+        torch.cuda.empty_cache()
+    return out
 
 
 def cagra_ivf_pq_path(dev, x, q, truth, k=10) -> dict:
@@ -1299,6 +1648,7 @@ def main() -> int:
         phase_small_parity_graph(dev)
         phase_small_search(dev)
         phase_small_ivf_pq(dev)
+        phase_small_ivf_pq_rungs(dev)
         phase_small_cagra(dev)
         res = main_path(dev)
         x, q, truth = res.pop("x"), res.pop("q"), res.pop("truth")
@@ -1306,6 +1656,8 @@ def main() -> int:
         pres = cagra_ivf_pq_path(dev, x, q, truth)
         del x, q, truth
         dres = ivf_pq_path(dev)
+        rres = ivf_pq_rungs_path(dev, dres.pop("x"), dres.pop("q"),
+                                 dres.pop("truth"), dres.pop("index"))
         cap, ccap = res["captured"], cres["captured"]
         kernels = [measure_ivf(*cap["ivf_list_scan_topk"],
                                res["launches"]["ivf_list_scan_topk"]),
@@ -1321,6 +1673,9 @@ def main() -> int:
         measure_ivf(*pres["captured"],
                     pres["launches"]["ivf_list_scan_topk"],
                     arm="int8 (CAGRA self-search)")
+        # one row per packed arm, from its DEEP-10M rung (the raw i4
+        # cache's run of the i4 arm is reported above it, not listed)
+        kernels += [rres[name]["kernel"] for name in ("i4", "pq4", "rabitq")]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1334,8 +1689,23 @@ def main() -> int:
         f"{dres['qps']:.1f}, recall@10 {dres['recall']:.4f}; refined QPS "
         f"{dres['refined_qps']:.1f}, recall@10 {dres['refined_recall']:.4f}; "
         f"total {time.perf_counter() - t_start:.1f} s")
+    failed = rres.pop("failed")
+    for name, r in rres.items():
+        log(f"IVF-PQ rung {name} (DEEP-10M config): cache {r['cache_gb']:.3f}"
+            f" GB, made in {r['make_s']:.3f} s, QPS {r['qps']:.1f}, recall@10"
+            f" {r['recall']:.4f}; refined QPS {r['refined_qps']:.1f}, "
+            f"recall@10 {r['refined_recall']:.4f}; arm {r['kernel']['ms']:.3f}"
+            f" ms vs bound {r['kernel']['bound_ms']:.3f} ms"
+            + "".join(f"; refined from {ratio * 10}: QPS {rq:.1f}, recall@10 "
+                      f"{rr:.4f}" for ratio, (rr, rq)
+                      in list(r["refined_by"].items())[1:])
+            + (f"; gate met from {r['matched'] * 10} candidates"
+               if r["matched"] else ""))
     log(smi)
     log(json.dumps({"kernels": kernels}))
+    if failed:
+        print("chip_smoke: FAILED: " + "; ".join(failed), file=sys.stderr)
+        return 1
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -94,12 +94,14 @@ def ivf_pq_index_from_numpy(arrays: Mapping[str, np.ndarray], metric,
     """An IVF-PQ index from the reference's arrays: ``centers``,
     ``centers_rot``, ``rotation``, ``pq_centers``, ``codes`` (uint32
     words, held here as int32 with the same bits), ``indices``,
-    ``list_sizes``, ``rec_norms`` and, optionally, the int8
-    ``recon_cache`` with its ``recon_scale`` (an entry of ``arrays`` or
-    the keyword), carried verbatim; without a cache one is built from the
-    codes when ``cache_decoded`` and ``cache_dtype`` ask for it.
-    ``pq_dim`` and ``pq_bits`` default to what the codebooks' shape
-    says."""
+    ``list_sizes``, ``rec_norms`` and, optionally, its cache carried
+    verbatim: ``recon_cache`` (int8 rows, or uint32 packed words of the
+    i4, pq4 and RaBitQ kinds) with ``recon_scale`` (an entry of
+    ``arrays`` or the keyword) and whichever of ``cache_scales``,
+    ``cache_qnorms`` and ``cache_fac`` the cache has. Without a cache one
+    is built from the codes when ``cache_decoded`` and ``cache_dtype``
+    ask for it. ``pq_dim`` and ``pq_bits`` default to what the codebooks'
+    shape says."""
     dev = resolve_device(device)
     pq_centers = np.asarray(arrays["pq_centers"], np.float32)
     rot_dim = np.asarray(arrays["rotation"]).shape[0]
@@ -113,15 +115,17 @@ def ivf_pq_index_from_numpy(arrays: Mapping[str, np.ndarray], metric,
         return as_tensor(a.view(np.int32) if a.dtype == np.uint32 else a,
                          dev, torch.int32)
 
+    def f32(name):
+        a = arrays.get(name)
+        return None if a is None else as_tensor(a, dev, torch.float32)
+
     index = ivf_pq.Index(
-        centers=as_tensor(arrays["centers"], dev, torch.float32),
-        centers_rot=as_tensor(arrays["centers_rot"], dev, torch.float32),
-        rotation=as_tensor(arrays["rotation"], dev, torch.float32),
-        pq_centers=as_tensor(pq_centers, dev),
+        centers=f32("centers"), centers_rot=f32("centers_rot"),
+        rotation=f32("rotation"), pq_centers=as_tensor(pq_centers, dev),
         codes=words(arrays["codes"]),
         indices=as_tensor(arrays["indices"], dev, torch.int32),
         list_sizes=as_tensor(arrays["list_sizes"], dev, torch.int32),
-        rec_norms=as_tensor(arrays["rec_norms"], dev, torch.float32),
+        rec_norms=f32("rec_norms"),
         metric=resolve_metric(metric), pq_dim_=int(pq_dim),
         metric_arg=float(metric_arg), codebook_kind=int(codebook_kind),
         pq_bits=int(pq_bits), cache_decoded=bool(cache_decoded),
@@ -129,12 +133,17 @@ def ivf_pq_index_from_numpy(arrays: Mapping[str, np.ndarray], metric,
     cache = arrays.get("recon_cache")
     if cache is None:
         return ivf_pq._attach_cache(index)
-    if np.asarray(cache).dtype != np.int8:
-        raise NotImplementedError(
-            "only the int8 decoded-residual cache is ported (ROADMAP.md, "
-            "Queue A item 2)")
+    cache = np.asarray(cache)
+    if cache.dtype not in (np.int8, np.uint32, np.int32):
+        raise ValueError(f"recon_cache must be int8 rows or uint32 words, "
+                         f"got {cache.dtype}")
     if recon_scale is None:
-        recon_scale = float(np.asarray(arrays["recon_scale"]))
+        recon_scale = (float(np.asarray(arrays["recon_scale"]))
+                       if "recon_scale" in arrays else 1.0)
     return dataclasses.replace(
-        index, recon_cache=as_tensor(cache, dev, torch.int8),
-        recon_scale=float(np.float32(recon_scale)))
+        index,
+        recon_cache=(as_tensor(cache, dev, torch.int8)
+                     if cache.dtype == np.int8 else words(cache)),
+        recon_scale=float(np.float32(recon_scale)),
+        cache_scales=f32("cache_scales"), cache_qnorms=f32("cache_qnorms"),
+        cache_fac=f32("cache_fac"))

@@ -12,27 +12,44 @@ parameters, its index fields and its index files.
   streams the encode over host or device batches (``_stream_encode``).
   Codes are held as int32 words with the reference's uint32 bits; the
   carriers (``convert``, ``save`` / ``load``) view them as uint32.
-* **The int8 decoded-residual cache** (``_recon_cache_scan`` :1731): every
-  stored vector's reconstructed residual, quantized with one scale
-  ``max|pq_centers| / 127`` (round half to even, clipped to +-127). It is
-  the "auto" cache whenever it fits ``_CACHE_BUDGET``. The other rungs
-  (i4, pq4, RaBitQ) are not ported (ROADMAP.md, Queue A item 2) and raise
-  ``NotImplementedError`` — asked for by name, or by "auto" when i8 does
-  not fit — rather than fall silently to no cache, where the reference
-  would pick a rung and answer differently.
+* **The caches** (``_cache_kind_for`` :1825, ``_attach_cache`` :1907),
+  the scan operands of kernel 2, each bit for bit the reference's on the
+  same codes (the norm sidecars to their sum order):
+
+  - "i8", the int8 decoded-residual cache (``_recon_cache_scan`` :1731):
+    every stored vector's reconstructed residual over one scale
+    ``max|pq_centers| / 127`` (round half to even, clipped to +-127), the
+    "auto" cache whenever it fits ``_CACHE_BUDGET``;
+  - "i4", the decoded residuals as packed signed nibbles
+    (``_recon_cache_scan_i4`` :1524) with per-list, per-component scales
+    at the least-error clip (``_pick_clip_scale`` :1570) and the
+    dequantized norms; "auto" below the i8 budget;
+  - "pq4", the 4-bit codes themselves, transposed (pq_bits 4);
+  - "rabitq", the decoded residuals' sign bits with the estimator's
+    per-row ``fac`` and true norms (``attach_rabitq_cache`` :1710);
+  - the raw rotated-residual caches of ``attach_raw_residual_cache``
+    (:1757), i4 (packed) or i8, with per-list scales from the dataset.
+
+  Packed caches are [n_lists, words, cap] int32 words with the
+  reference's uint32 bits, rows on the fast axis.
 * **Search** (``_pq_search`` :1971, ``search`` :2244): the coarse queries x
   centers product and ``select_k`` of the probes, ``bucketize_pairs``,
   then one of two scans, then ``unbucketize_merge``.
 
-  - The cache scan runs kernel 2 (``ops.ivf_scan``) on the int8 cache in
-    its residual-query mode: per bucket ``(q_rot - centers_rot[l]) *
-    recon_scale`` for L2, ``q_rot * recon_scale`` for inner product with
-    ``q_rot . c_l`` added after the kernel (``ivf_pq.py:2033-2120``).
+  - The cache scan runs kernel 2 (``ops.ivf_scan``) on the cache in its
+    residual-query mode: per bucket ``(q_rot - centers_rot[l]) * qscale``
+    for L2, ``q_rot * qscale`` for inner product with ``q_rot . c_l``
+    added after the kernel (``ivf_pq.py:2033-2120``); ``qscale`` is the
+    per-list scales of the i4 and raw caches, 1 for pq4 and RaBitQ, else
+    ``recon_scale``. The packed caches take the kernel's packed arms:
+    i4, pq4 (scored against ``pq_centers``), and RaBitQ (sign bits, the
+    queries zero-padded to the word width, ``cache_fac`` as the row
+    scale). Norms are ``cache_qnorms`` where the cache carries them.
   - The decode-then-matmul scan (the reference's XLA body, :2122-2241) is
-    plain PyTorch: codes unpacked and decoded through the codebooks (or the
-    cache read back at its scale), the ``lut_dtype`` ladder ("auto" /
-    "i8" / "f32" / "bf16" / "f8"), ``internal_distance_dtype`` "bf16",
-    prefilters and flat codes.
+    plain PyTorch: codes unpacked and decoded through the codebooks (or an
+    i8, i4 or RaBitQ cache read back at its scales), the ``lut_dtype``
+    ladder ("auto" / "i8" / "f32" / "bf16" / "f8"),
+    ``internal_distance_dtype`` "bf16", prefilters and flat codes.
 
   Routes (``SearchParams.scan_impl``): "auto" and "pallas" take the cache
   scan through the kernel (its plain version on CPU tensors) when the
@@ -46,9 +63,9 @@ parameters, its index fields and its index files.
   approximate kernel arms are not ported (ROADMAP.md, Queue B item 2).
   ``coarse_margins`` (:2339) is IVF-Flat's, which reads only the centers.
 
-Not ported: ``build_streamed`` and its checkpointed resume, ``search_refined``
-(it runs a compiled plan), the raw-residual and RaBitQ caches, and the
-tracing spans (ROADMAP.md).
+Not ported: ``build_streamed`` and its checkpointed resume (with it
+``_trainset_i4_scales``), ``search_refined`` (it runs a compiled plan),
+and the tracing spans (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -75,12 +92,9 @@ from raft_tpu_torch.neighbors.ivf_flat import _aligned_cap, _pack_lists, \
 from raft_tpu_torch.ops import ivf_scan
 from raft_tpu_torch.utils.precision import dist_dot
 
-# the file version written here: v3 carries a serialized cache for
-# cache-only indexes; v4 (the reference's RaBitQ sidecar) is read as well
-_SERIAL_VERSION = 3
-_READ_VERSION_MAX = 4
-
-_QUEUE_A2 = "ROADMAP.md, Queue A item 2"
+# the file version written here, the reference's: v3 carries a serialized
+# cache (cache-only and per-list-scaled caches), v4 the RaBitQ sidecar
+_SERIAL_VERSION = 4
 
 
 class codebook_gen:
@@ -104,9 +118,9 @@ class IndexParams:
     """Build params (reference ivf_pq_types.hpp:48-97).
 
     ``pq_dim`` 0 picks ``dim / 4`` rounded down to a multiple of 8 (at
-    least 8); ``cache_decoded`` builds the decoded-residual cache when
-    ``cache_dtype`` allows it and it fits ``_CACHE_BUDGET``: "auto" and
-    "i8" give the int8 cache; "i4", "pq4" and "rabitq" are not ported."""
+    least 8); ``cache_decoded`` builds the cache that ``cache_dtype``
+    names ("i8", "i4", "pq4", "rabitq") when it fits ``_CACHE_BUDGET``, or
+    with "auto" the ladder's choice (:func:`_cache_kind_for`)."""
 
     n_lists: int = 1024
     metric: DistanceType = DistanceType.L2Expanded
@@ -137,9 +151,10 @@ class IndexParams:
 class SearchParams:
     """Search params (reference ivf_pq_types.hpp:110-146).
 
-    ``lut_dtype``: "auto" scans the int8 cache when the index has one,
-    else decodes in f32; "i8" requires the cache; "f32" / "bf16" / "f8"
-    force the decode scan at that precision (torch dtypes accepted).
+    ``lut_dtype``: "auto" scans the index's cache when it has one, else
+    decodes in f32; "i8" requires an i8 or i4 cache; "f32" / "bf16" /
+    "f8" force the decode scan at that precision (torch dtypes
+    accepted).
     ``internal_distance_dtype``: "f32" | "bf16" (decode scan).
     ``compute_dtype``: the scan's operand type ("bf16" rounds both
     operands, f32 accumulation). ``local_recall_target``,
@@ -166,10 +181,13 @@ class Index:
     ``rec_norms`` [n_lists, cap] f32 squared norms of the reconstructed
     residuals; ``pq_centers`` [pq_dim, K, pq_len] (PER_SUBSPACE) or
     [n_lists, K, pq_len] (PER_CLUSTER); ``rotation`` [rot_dim, dim];
-    ``recon_cache`` the int8 decoded-residual cache [n_lists, cap,
-    rot_dim] with its scale ``recon_scale``, or None. ``cache_scales``,
-    ``cache_qnorms`` and ``cache_fac`` belong to the reference's i4 and
-    RaBitQ caches and stay None here."""
+    ``recon_cache`` the scan cache or None: int8 [n_lists, cap, rot_dim]
+    (with ``recon_scale``, or per-list ``cache_scales`` for the raw
+    cache), or packed int32 words [n_lists, words, cap] (i4, pq4,
+    RaBitQ); ``cache_scales`` [n_lists, rot_dim] (i4 and raw caches),
+    ``cache_qnorms`` [n_lists, cap] (the norms those caches are scored
+    against) and ``cache_fac`` [n_lists, cap] (RaBitQ's estimator
+    scale)."""
 
     centers: torch.Tensor
     centers_rot: torch.Tensor
@@ -222,9 +240,10 @@ class Index:
 
     @property
     def cache_kind(self) -> str:
-        """"i8" (the int8 decoded-residual cache) or "none"; an index
-        carried from the reference may name its other rungs ("rabitq",
-        "i4", "pq4"), which this package does not search."""
+        """"i8" (int8 rows), "i4" (packed nibbles with per-list
+        scales), "pq4" (the transposed 4-bit codes), "rabitq" (sign bits
+        with ``cache_fac``) or "none"; the packed kinds are told apart by
+        their sidecars, as in the reference."""
         if self.recon_cache is None:
             return "none"
         if self.recon_cache.dtype == torch.int32:
@@ -273,12 +292,7 @@ def pack_codes(codes, pq_bits: int) -> torch.Tensor:
 
 def unpack_codes(packed, pq_dim: int, pq_bits: int) -> torch.Tensor:
     """[..., n_words] words -> [..., pq_dim] int32 codes."""
-    packed = torch.as_tensor(packed).to(torch.int32)
-    cpw = codes_per_word(pq_bits)
-    j = torch.arange(pq_dim, device=packed.device)
-    words = packed.index_select(-1, j // cpw)                # [..., p]
-    shifts = ((j % cpw) * pq_bits).to(torch.int32)
-    return (words >> shifts) & ((1 << pq_bits) - 1)
+    return ivf_scan.unpack_fields(packed, pq_dim, pq_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -635,38 +649,237 @@ def _recon_cache_scan(codes_packed: torch.Tensor, pq_centers: torch.Tensor,
     return cache, float(scale)
 
 
+# ---------------------------------------------------------------------------
+# the compressed caches (reference ivf_pq.py:1440-1830)
+# ---------------------------------------------------------------------------
+
+
+def unpack_i4(packed) -> torch.Tensor:
+    """[..., nw] words -> [..., nw * 8] f32 raw values in [-8, 7] (callers
+    apply the scales): the kernel's sign-extending decode."""
+    w = torch.as_tensor(packed)
+    return ivf_scan.unpack_fields(w, w.shape[-1] * 8, 4, signed=True).float()
+
+
+def _quant_pack_i4(recon: torch.Tensor, scales: torch.Tensor):
+    """[..., rot] f32 -> ([..., rot // 8] int32 packed signed nibbles,
+    [...] f32 dequantized-vector norms)."""
+    q = torch.clamp(torch.round(recon / scales), -8, 7).to(torch.int32)
+    deq = q.float() * scales
+    return pack_codes(q & 0xF, 4), (deq * deq).sum(-1)
+
+
+_CLIP_CANDIDATES = (0.6, 0.7, 0.8, 0.9, 1.0)
+
+
+def _pick_clip_scale(vals: torch.Tensor, base_scale: torch.Tensor,
+                     ok: torch.Tensor, qmax: int = 7) -> torch.Tensor:
+    """Per-list least-error clip: quantize ``vals`` [..., n, rot] (valid
+    rows ``ok`` [..., n, 1]) at each candidate scale ``m * base_scale``
+    [..., rot] and keep, per leading entry, the ``m`` with the least total
+    squared error (the first on a tie)."""
+    best_err = best_m = None
+    for m in _CLIP_CANDIDATES:
+        s = base_scale * m
+        q = torch.clamp(torch.round(vals / s[..., None, :]), -qmax - 1, qmax)
+        e = q * s[..., None, :] - vals
+        err = torch.where(ok, e * e, 0.0).sum((-2, -1))
+        if best_err is None:
+            best_err, best_m = err, torch.full_like(err, m)
+        else:
+            best_m = torch.where(err < best_err, m, best_m)
+            best_err = torch.minimum(err, best_err)
+    return base_scale * best_m[..., None]
+
+
+def _recon_cache_scan_i4(codes_packed: torch.Tensor, indices: torch.Tensor,
+                         pq_centers: torch.Tensor, codebook_kind: int,
+                         pq_dim: int, pq_bits: int):
+    """The packed-int4 decoded-residual cache: (cache [C, rot // 8, cap]
+    int32 words, per-list per-component scales [C, rot], dequantized norms
+    [C, cap]). A list's base scale is its largest valid |component| / 7;
+    the clip multiplier is picked on its valid rows; every row, padding
+    included, is quantized, as the reference does."""
+    C, cap, _ = codes_packed.shape
+    rot = pq_dim * pq_centers.shape[-1]
+    dev = codes_packed.device
+    # times the f32 reciprocal of 7, the bits the reference's compiled
+    # division by a constant gives
+    inv7 = torch.tensor(1.0 / 7.0, dtype=torch.float32, device=dev)
+    cache = torch.empty((C, rot // 8, cap), dtype=torch.int32, device=dev)
+    scales = torch.empty((C, rot), dtype=torch.float32, device=dev)
+    qnorms = torch.empty((C, cap), dtype=torch.float32, device=dev)
+    for l0, recon in _decoded_lists(codes_packed, pq_centers, codebook_kind,
+                                    pq_dim, pq_bits):
+        l1 = l0 + recon.shape[0]
+        ok = (indices[l0:l1] >= 0)[..., None]
+        lmax = torch.where(ok, recon.abs(), 0.0).amax(1)
+        base = torch.clamp_min(lmax, 1e-30) * inv7
+        s_best = _pick_clip_scale(recon, base, ok)
+        packed, qn = _quant_pack_i4(recon, s_best[:, None, :])
+        cache[l0:l1] = packed.transpose(1, 2)
+        scales[l0:l1] = s_best
+        qnorms[l0:l1] = qn
+    return cache, scales, qnorms
+
+
+def bits_words(rot: int) -> int:
+    """Sign-bit words per row: ceil(rot / 32) (the last may be partial)."""
+    return -(-rot // 32)
+
+
+def pack_sign_bits(vals: torch.Tensor) -> torch.Tensor:
+    """[..., d] f32 -> [..., ceil(d / 32)] int32 words: bit j of word w set
+    where vals[..., 32 w + j] > 0, pad bits zero."""
+    return pack_codes((vals > 0).to(torch.int32), 1)
+
+
+def unpack_sign_bits(packed, d: int) -> torch.Tensor:
+    """[..., nw] words -> [..., d] f32 in {-1, +1} (pad bits dropped)."""
+    return 2.0 * ivf_scan.unpack_fields(packed, d, 1).float() - 1.0
+
+
+def _quant_pack_rabitq(res: torch.Tensor):
+    """[..., rot] f32 residuals -> (packed [..., ceil(rot / 32)] int32,
+    fac [...] = ||r||^2 / ||r||_1, norm2 [...]). All-zero rows get fac 0."""
+    norm2 = (res * res).sum(-1)
+    l1 = res.abs().sum(-1)
+    return pack_sign_bits(res), norm2 / torch.clamp_min(l1, 1e-30), norm2
+
+
+def _rabitq_cache_scan(codes_packed: torch.Tensor, indices: torch.Tensor,
+                       pq_centers: torch.Tensor, codebook_kind: int,
+                       pq_dim: int, pq_bits: int):
+    """The sign-bit cache of the decoded reconstruction: (cache [C,
+    ceil(rot / 32), cap] int32 words, fac [C, cap], the reconstruction's
+    norms [C, cap]); padding slots are zeroed."""
+    C, cap, _ = codes_packed.shape
+    rot = pq_dim * pq_centers.shape[-1]
+    dev = codes_packed.device
+    cache = torch.empty((C, bits_words(rot), cap), dtype=torch.int32,
+                        device=dev)
+    fac = torch.empty((C, cap), dtype=torch.float32, device=dev)
+    qnorms = torch.empty((C, cap), dtype=torch.float32, device=dev)
+    for l0, recon in _decoded_lists(codes_packed, pq_centers, codebook_kind,
+                                    pq_dim, pq_bits):
+        l1 = l0 + recon.shape[0]
+        recon = torch.where((indices[l0:l1] >= 0)[..., None], recon, 0.0)
+        packed, f, n2 = _quant_pack_rabitq(recon)
+        cache[l0:l1] = packed.transpose(1, 2)
+        fac[l0:l1] = f
+        qnorms[l0:l1] = n2
+    return cache, fac, qnorms
+
+
+def scan_bytes_per_row(kind: str, rot: int, pq_dim: int = 0):
+    """The first-stage scan's bytes per scanned row: (code bytes, total
+    with the per-row sidecars and the 4-byte id the scan also reads)."""
+    if kind == "rabitq":
+        return bits_words(rot) * 4, bits_words(rot) * 4 + 12
+    if kind == "i4":
+        return rot // 2, rot // 2 + 8
+    if kind == "i8":
+        return rot, rot + 8
+    if kind == "pq4":
+        return pq_dim // 2, pq_dim // 2 + 8
+    raise ValueError(f"unknown scan kind {kind!r}")
+
+
+def attach_rabitq_cache(index: Index) -> Index:
+    """The index on the RaBitQ rung: its sign-bit cache and sidecars
+    rebuilt from the packed codes, replacing the cache it carried."""
+    if index.codes.dim() != 3 or index.codes.shape[-1] == 0:
+        raise ValueError(
+            "attach_rabitq_cache needs the packed codes (cache-only "
+            "indexes already carry their final cache)")
+    cache, fac, qnorms = _rabitq_cache_scan(
+        index.codes, index.indices, index.pq_centers, index.codebook_kind,
+        index.pq_dim, index.pq_bits)
+    return dataclasses.replace(index, recon_cache=cache, recon_scale=1.0,
+                               cache_scales=None, cache_qnorms=qnorms,
+                               cache_fac=fac)
+
+
+def attach_raw_residual_cache(index: Index, dataset, block_lists: int = 64,
+                              dtype: str = "i4") -> Index:
+    """The index with a RAW rotated-residual cache built from ``dataset``
+    (the rows its ids name): packed int4 ("i4", 0.5 B a component) or
+    int8 ("i8"), both with per-list least-error-clip scales over the
+    stored residuals and the dequantized norms; padding slots get norm 0.
+    ``block_lists`` lists at a time bound the [B, cap, rot] f32
+    transient."""
+    if dtype not in ("i4", "i8"):
+        raise ValueError(f"dtype must be i4|i8, got {dtype!r}")
+    qmax = 7 if dtype == "i4" else 127
+    C, cap = index.indices.shape
+    rot = index.rot_dim
+    if dtype == "i4" and rot % 8 != 0:
+        raise ValueError(f"int4 cache needs rot_dim % 8 == 0, got {rot}")
+    dev = index.centers.device
+    ds = as_tensor(dataset, dev)
+    cache = torch.empty((C, rot // 8, cap) if dtype == "i4"
+                        else (C, cap, rot),
+                        dtype=torch.int32 if dtype == "i4" else torch.int8,
+                        device=dev)
+    scales = torch.empty((C, rot), dtype=torch.float32, device=dev)
+    qnorms = torch.empty((C, cap), dtype=torch.float32, device=dev)
+    # a true division: the reference runs this builder eagerly, op by op
+    qmax_t = torch.tensor(float(qmax), dtype=torch.float32, device=dev)
+    for c0 in range(0, C, block_lists):
+        ids = index.indices[c0:c0 + block_lists]             # [B, cap]
+        B = ids.shape[0]
+        ok = (ids >= 0)[..., None]
+        rows = ds[ids.clamp_min(0).long()].float()           # [B, cap, d]
+        r_rot = dist_dot(rows.reshape(B * cap, -1), index.rotation.T)
+        res = r_rot.reshape(B, cap, rot) - index.centers_rot[c0:c0 + B][
+            :, None, :]
+        res = torch.where(ok, res, 0.0)
+        base = torch.clamp_min(res.abs().amax(1), 1e-30) / qmax_t
+        s_blk = _pick_clip_scale(res, base, ok, qmax=qmax)   # [B, rot]
+        if dtype == "i4":
+            packed, qn = _quant_pack_i4(res, s_blk[:, None, :])
+            cache[c0:c0 + B] = packed.transpose(1, 2)
+        else:
+            q8 = torch.clamp(torch.round(res / s_blk[:, None, :]), -128, 127)
+            deq = q8 * s_blk[:, None, :]
+            qn = (deq * deq).sum(-1)
+            cache[c0:c0 + B] = q8.to(torch.int8)
+        scales[c0:c0 + B] = s_blk
+        qnorms[c0:c0 + B] = torch.where(ok[..., 0], qn, 0.0)
+    return dataclasses.replace(index, recon_cache=cache, recon_scale=1.0,
+                               cache_scales=scales, cache_qnorms=qnorms,
+                               cache_fac=None)
+
+
 def _cache_kind_for(cache_decoded: bool, cache_dtype: str, C: int, cap: int,
                     rot: int, pq_bits: int = 8, pq_dim: int = 0,
                     per_subspace: bool = True) -> Optional[str]:
-    """The reference's cache ladder: "auto" is i8 whenever it fits the
-    budget; below it the reference picks a half-byte or 1-bit rung, which
-    are not ported (they raise, naming ROADMAP Queue A item 2). An
-    explicit kind that does not fit gives no cache, as in the reference."""
+    """The reference's cache ladder. "auto" is i8 whenever it fits the
+    budget; below it, the rung that fits among i4, pq4 and RaBitQ, which
+    the reference picks through its tuning table (``tuning.choose``) with
+    "i4" as the analytic fallback (else no cache). The table waits for
+    the port of ``tuning/`` (ROADMAP.md, Queue A item 3), so "auto" gives
+    what the reference gives on a table miss or with tuning off. An
+    explicit kind that does not fit gives no cache, as in the
+    reference."""
     if not cache_decoded or cap == 0:
         return None
-    i8_ok = C * cap * rot <= _CACHE_BUDGET
-    i4_ok = rot % 8 == 0 and C * cap * rot // 2 <= _CACHE_BUDGET
-    pq4_ok = (pq_bits == 4 and per_subspace and pq_dim > 0
-              and pq_dim % 8 == 0 and C * cap * pq_dim // 2 <= _CACHE_BUDGET)
-    rabitq_ok = C * cap * (-(-rot // 32) * 4 + 8) <= _CACHE_BUDGET
-    ok = {"i8": i8_ok, "i4": i4_ok, "pq4": pq4_ok, "rabitq": rabitq_ok}
+    ok = {
+        "i8": C * cap * rot <= _CACHE_BUDGET,
+        "i4": rot % 8 == 0 and C * cap * rot // 2 <= _CACHE_BUDGET,
+        "pq4": (pq_bits == 4 and per_subspace and pq_dim > 0
+                and pq_dim % 8 == 0 and C * cap * pq_dim // 2
+                <= _CACHE_BUDGET),
+        # sign-bit words plus the fac / norm sidecars per row
+        "rabitq": C * cap * (bits_words(rot) * 4 + 8) <= _CACHE_BUDGET,
+    }
     if cache_dtype == "auto":
-        if i8_ok:
+        if ok["i8"]:
             return "i8"
-        feasible = [kind for kind in ("i4", "pq4", "rabitq") if ok[kind]]
-        if feasible:
-            raise NotImplementedError(
-                f"the int8 cache ({C} x {cap} x {rot} B) exceeds "
-                f"_CACHE_BUDGET and the reference would pick one of "
-                f"{feasible}, which are not ported yet ({_QUEUE_A2}); build "
-                "with cache_decoded=False for the decode scan")
-        return None
+        return "i4" if ok["i4"] else None
     if cache_dtype not in ok:
         raise ValueError(f"unknown cache_dtype {cache_dtype!r}")
-    if cache_dtype != "i8":
-        raise NotImplementedError(
-            f"cache_dtype={cache_dtype!r} is not ported yet ({_QUEUE_A2})")
-    return "i8" if i8_ok else None
+    return cache_dtype if ok[cache_dtype] else None
 
 
 def _resolve_cache_kind(index: Index) -> Optional[str]:
@@ -678,21 +891,37 @@ def _resolve_cache_kind(index: Index) -> Optional[str]:
 
 
 def _attach_cache(index: Index) -> Index:
-    """(Re)build the int8 cache when it is enabled and fits; cache-only
-    indexes keep the cache they carry."""
-    none = dict(cache_scales=None, cache_qnorms=None, cache_fac=None)
+    """(Re)build the cache that the ladder picks; cache-only indexes keep
+    the cache they carry."""
+    none = dict(recon_scale=1.0, cache_scales=None, cache_qnorms=None,
+                cache_fac=None)
     if index.codes.dim() != 3 or index.codes.shape[-1] == 0:
         # flat codes / cache-only: never rebuilt here
         if index.codes.shape[-1] == 0 and index.recon_cache is not None:
             return index
         return dataclasses.replace(index, **none, recon_cache=None)
-    if _resolve_cache_kind(index) is None:
+    kind = _resolve_cache_kind(index)
+    args = (index.codes, index.pq_centers, index.codebook_kind,
+            index.pq_dim, index.pq_bits)
+    if kind is None:
         return dataclasses.replace(index, **none, recon_cache=None)
-    cache, scale = _recon_cache_scan(index.codes, index.pq_centers,
-                                     index.codebook_kind, index.pq_dim,
-                                     index.pq_bits)
-    return dataclasses.replace(index, **none, recon_cache=cache,
-                               recon_scale=scale)
+    if kind == "i8":
+        cache, scale = _recon_cache_scan(*args)
+        return dataclasses.replace(index, **{**none, "recon_scale": scale},
+                                   recon_cache=cache)
+    if kind == "pq4":
+        # the "cache" is the packed codes in the kernel's [C, nw, cap]
+        # layout (told apart from i4 by the absent scales)
+        return dataclasses.replace(
+            index, **none,
+            recon_cache=index.codes.transpose(1, 2).contiguous())
+    if kind == "rabitq":
+        return attach_rabitq_cache(index)
+    cache, scales, qnorms = _recon_cache_scan_i4(
+        index.codes, index.indices, *args[1:])
+    return dataclasses.replace(index, recon_cache=cache, recon_scale=1.0,
+                               cache_scales=scales, cache_qnorms=qnorms,
+                               cache_fac=None)
 
 
 # ---------------------------------------------------------------------------
@@ -744,31 +973,66 @@ def _scan_route(requested: str, use_cache: bool, kl: int) -> str:
 
 def _cache_scan(index: Index, q_rot: torch.Tensor, bucket_list, bucket_q,
                 kl: int, keep, compute_dtype: str, plain: bool):
-    """Kernel 2 over the int8 cache with residual queries: (candidate
-    distances [nb, G, kl] in the metric's own space, ids)."""
+    """Kernel 2 over the index's cache with residual queries: (candidate
+    distances [nb, G, kl] in the metric's own space, ids). The query
+    scale is the per-list ``cache_scales`` where the cache has them, 1
+    for pq4 and RaBitQ, else ``recon_scale``; the packed caches take
+    their arm, RaBitQ with the queries zero-padded to its word width."""
     scan = (ivf_scan.ivf_list_scan_topk_plain if plain
             else ivf_scan.ivf_list_scan_topk)
+    kind = index.cache_kind
     ip = index.metric == DistanceType.InnerProduct
+    if index.cache_scales is not None:
+        scale = index.cache_scales
+    elif kind in ("pq4", "rabitq"):
+        scale = 1.0
+    else:
+        scale = index.recon_scale
+    q, centers = q_rot, index.centers_rot
+    if kind == "rabitq":
+        pad = index.recon_cache.shape[1] * 32 - index.rot_dim
+        q = torch.nn.functional.pad(q_rot, (0, pad))
+        centers = torch.nn.functional.pad(centers, (0, pad))
+    arm = dict(k=kl, compute_dtype=compute_dtype, scale=scale,
+               packed_i4=kind == "i4", packed_bits=kind == "rabitq",
+               pq_centers=index.pq_centers if kind == "pq4" else None,
+               row_scale=index.cache_fac if kind == "rabitq" else None)
     if ip:
         out_d, cand_i = scan(
             index.recon_cache, index.indices, index.list_sizes, bucket_list,
-            bucket_q, q_rot, None, None, keep, k=kl,
-            metric_kind=ivf_scan.IP, compute_dtype=compute_dtype,
-            scale=index.recon_scale)
+            bucket_q, q, None, None, keep, metric_kind=ivf_scan.IP, **arm)
         # q . x ~ q_rot . c_l + q_rot . recon; the kernel gave -(q_rot .
         # recon), the per-(query, list) constant comes back here
         qc = dist_dot(q_rot, index.centers_rot.T)[
             bucket_q.long().clamp_min(0), bucket_list.long()[:, None]]
         cand_d = qc[:, :, None] + (-out_d)
     else:
+        norms = (index.rec_norms if index.cache_qnorms is None
+                 else index.cache_qnorms)
         out_d, cand_i = scan(
             index.recon_cache, index.indices, index.list_sizes, bucket_list,
-            bucket_q, q_rot, None, index.rec_norms, keep, k=kl,
-            metric_kind=ivf_scan.L2, compute_dtype=compute_dtype,
-            centers=index.centers_rot, scale=index.recon_scale)
+            bucket_q, q, None, norms, keep, metric_kind=ivf_scan.L2,
+            centers=centers, **arm)
         cand_d = out_d
     sentinel = sentinel_for(index.metric)
     return torch.where(torch.isinf(out_d), sentinel, cand_d), cand_i
+
+
+def _cache_block(index: Index, bl: torch.Tensor) -> torch.Tensor:
+    """The decode scan's rows of lists ``bl`` read back from an i8, i4 or
+    RaBitQ cache at their scales: [bb, cap, rot] f32."""
+    kind = index.cache_kind
+    blk = index.recon_cache[bl]
+    if kind == "rabitq":
+        signs = unpack_sign_bits(blk.transpose(1, 2), index.rot_dim)
+        return signs * index.cache_fac[bl][:, :, None]
+    if kind == "i4":
+        return unpack_i4(blk.transpose(1, 2)) * \
+            index.cache_scales[bl][:, None, :]
+    if index.cache_scales is not None:                   # raw i8, per list
+        return blk.float() * index.cache_scales[bl][:, None, :]
+    return blk.float() * torch.tensor(index.recon_scale, dtype=torch.float32,
+                                      device=blk.device)
 
 
 def _decode_scan(index: Index, q_rot: torch.Tensor, bucket_list, bucket_q,
@@ -776,18 +1040,20 @@ def _decode_scan(index: Index, q_rot: torch.Tensor, bucket_list, bucket_q,
                  lut: str, internal: str, bucket_batch: int):
     """The decode-then-matmul scan (the reference's XLA body), one batch of
     ``bucket_batch`` buckets at a time: each probed list decoded (or read
-    back from the int8 cache when ``lut`` allows it), optionally through
-    e4m3 at a per-batch scale, scored against the bucket's residual
-    queries, masked, and cut to its top-kl."""
+    back from an i8, i4 or RaBitQ cache, scored against the cache's own
+    norms, when ``lut`` allows it; pq4 decodes its codes), optionally
+    through e4m3 at a per-batch scale, scored against the bucket's
+    residual queries, masked, and cut to its top-kl."""
     metric = index.metric
     C, cap = index.indices.shape
     ip = metric == DistanceType.InnerProduct
     sentinel = sentinel_for(metric)
     select_min = is_min_close(metric)
-    use_cache_blk = index.cache_kind == "i8" and lut in ("auto", "i8")
+    use_cache_blk = (index.cache_kind in ("i8", "i4", "rabitq")
+                     and lut in ("auto", "i8"))
+    norms = (index.cache_qnorms if use_cache_blk and
+             index.cache_qnorms is not None else index.rec_norms)
     col = torch.arange(cap, device=q_rot.device)
-    scale = torch.tensor(index.recon_scale, dtype=torch.float32,
-                         device=q_rot.device)
     inv240 = torch.tensor(1.0 / 240.0, dtype=torch.float32,
                           device=q_rot.device)
     out_d, out_i = [], []
@@ -796,9 +1062,9 @@ def _decode_scan(index: Index, q_rot: torch.Tensor, bucket_list, bucket_q,
         bq = bucket_q[b0:b0 + bucket_batch].long()
         ids = index.indices[bl]
         sizes = index.list_sizes[bl].long()
-        rn = index.rec_norms[bl]
+        rn = norms[bl]
         if use_cache_blk:
-            recon = index.recon_cache[bl].float() * scale
+            recon = _cache_block(index, bl)
         else:
             if index.codes.dim() == 2:
                 rows = bl[:, None] * cap + col[None, :]
@@ -906,10 +1172,6 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
     if k > n_probes * cap:
         raise ValueError(f"k={k} exceeds n_probes*list_capacity="
                          f"{n_probes * cap}")
-    if index.cache_kind not in ("none", "i8"):
-        raise NotImplementedError(
-            f"the {index.cache_kind!r} cache is not ported yet "
-            f"({_QUEUE_A2})")
     if str(search_params.compute_dtype) not in ("f32", "bf16"):
         raise ValueError(f"compute_dtype must be f32|bf16, got "
                          f"{search_params.compute_dtype!r}")
@@ -920,13 +1182,16 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
     lut = _norm_dtype_knob(search_params.lut_dtype)
     internal = _norm_dtype_knob(search_params.internal_distance_dtype)
     use_cache = index.recon_cache is not None and lut in ("auto", "i8")
-    if lut == "i8" and index.cache_kind != "i8":
+    if lut == "i8" and index.cache_kind not in ("i8", "i4"):
         raise ValueError(
             "lut_dtype='i8' needs the decoded-residual cache; build with "
             "cache_decoded=True (and within _CACHE_BUDGET)")
     route = _scan_route(str(search_params.scan_impl), use_cache,
                         min(int(k), cap))
-    if route == "decode" and index.codes.shape[-1] == 0:
+    # the decode scan reads the codes unless it reads an i8 / i4 / RaBitQ
+    # cache's rows instead
+    if route == "decode" and index.codes.shape[-1] == 0 and not (
+            use_cache and index.cache_kind != "pq4"):
         raise ValueError(
             "this index was built with keep_codes=False (cache-only); the "
             "decode scan needs the packed codes — search with "
@@ -945,15 +1210,14 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
 
 
 def save(path: str, index: Index) -> None:
-    """Write the index file the reference writes (kind "ivf_pq"). The int8
-    cache is rebuilt from the codes on load, as the reference does."""
+    """Write the index file the reference writes (kind "ivf_pq"). A cache
+    that the codes cannot rebuild — a cache-only index's, a per-list-scaled
+    raw cache, a RaBitQ cache — is written with its sidecars; the others
+    are rebuilt from the codes on load, as the reference does."""
     cap = index.indices.shape[1]
     codes = index.codes.cpu().numpy().view(np.uint32)
     if codes.ndim == 2:
         codes = codes.reshape(index.n_lists, cap, -1)
-    if codes.shape[-1] == 0 and cap > 0:
-        raise NotImplementedError(
-            f"saving a cache-only index is not ported ({_QUEUE_A2})")
     arrays = {
         "centers": index.centers.cpu().numpy(),
         "centers_rot": index.centers_rot.cpu().numpy(),
@@ -964,6 +1228,20 @@ def save(path: str, index: Index) -> None:
         "list_sizes": index.list_sizes.cpu().numpy(),
         "rec_norms": index.rec_norms.cpu().numpy(),
     }
+    cache_only = codes.shape[-1] == 0 and cap > 0
+    if cache_only and index.recon_cache is None:
+        raise ValueError("cache-only index has no recon_cache to serialize")
+    raw_scaled = (index.cache_scales is not None
+                  or index.cache_fac is not None)
+    serialized = "none"
+    if cache_only or raw_scaled:
+        cache = index.recon_cache.cpu().numpy()
+        arrays["recon_cache"] = (cache.view(np.uint32)
+                                 if cache.dtype == np.int32 else cache)
+        serialized = index.cache_kind
+        for name in ("cache_scales", "cache_fac", "cache_qnorms"):
+            if raw_scaled and getattr(index, name) is not None:
+                arrays[name] = getattr(index, name).cpu().numpy()
     write_index_file(path, "ivf_pq", _SERIAL_VERSION, {
         "metric": int(index.metric),
         "metric_arg": index.metric_arg,
@@ -972,29 +1250,28 @@ def save(path: str, index: Index) -> None:
         "pq_dim": int(index.pq_dim),
         "cache_decoded": bool(index.cache_decoded),
         "cache_dtype": str(index.cache_dtype),
-        "serialized_cache": "none",
+        "serialized_cache": serialized,
         "recon_scale": float(index.recon_scale),
     }, arrays)
 
 
 def load(path: str, device=None) -> Index:
     """Read an index file written by either package onto ``device``
-    (default: the CUDA card) and rebuild its int8 cache."""
+    (default: the CUDA card): a serialized cache is restored verbatim,
+    else the cache is rebuilt from the codes."""
     from raft_tpu_torch.convert import ivf_pq_index_from_numpy
 
     version, meta, arrays = read_index_file(path, "ivf_pq")
-    if version > _READ_VERSION_MAX:
+    if version > _SERIAL_VERSION:
         raise ValueError(f"{path}: ivf_pq file version {version} is newer "
-                         f"than this package reads ({_READ_VERSION_MAX})")
-    ser = meta.get("serialized_cache", "none")
-    if ser != "none":
-        raise NotImplementedError(
-            f"{path}: carries a serialized {ser!r} cache (a cache-only or "
-            f"raw-residual index), which is not ported yet ({_QUEUE_A2})")
+                         f"than this package reads ({_SERIAL_VERSION})")
+    if meta.get("serialized_cache", "none") == "none":
+        arrays.pop("recon_cache", None)
     return ivf_pq_index_from_numpy(
         arrays, DistanceType(meta["metric"]), device=device,
         pq_dim=int(meta["pq_dim"]), pq_bits=int(meta["pq_bits"]),
         codebook_kind=int(meta["codebook_kind"]),
+        recon_scale=meta.get("recon_scale", 1.0),
         metric_arg=meta["metric_arg"],
         cache_decoded=bool(meta.get("cache_decoded", True)),
         cache_dtype=str(meta.get("cache_dtype", "auto")))

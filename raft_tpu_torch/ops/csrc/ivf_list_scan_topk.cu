@@ -1,8 +1,10 @@
 // ivf_list_scan_topk — the IVF list scan + per-list top-k on Hopper.
 //
 // Replaces raft_tpu/ops/ivf_scan.py:_scan_kernel: the float-storage arm
-// (f32 / bf16 rows) and the int8 rows that the float branch widens
-// (:302-308, IVF-PQ's decoded-residual cache), with exact extraction. One
+// (f32 / bf16 rows), the int8 rows that the float branch widens
+// (:302-308, IVF-PQ's int8 caches) and the three packed storage arms
+// (packed_i4 :281, packed_bits + row_scale :256/:310, packed_pq4 :221;
+// IVF-PQ's compressed caches, below), with exact extraction. One
 // block per (bucket, 64-query sub-tile), sub-tiles fastest so the blocks
 // of one bucket read its list together through L2. The block reads its
 // own list id (bucket_list[b]) and size, gathers its queries by bucket_q
@@ -32,11 +34,27 @@
 // tensor cores'. PERF.md splits its time by stage (staging, dots, top-k
 // selection); staging each list once per bucket, moving the dots to the
 // tensor cores (wgmma) and cutting the selection's cost are the next steps.
+//
+// Packed arms. The i4 and sign-bit caches are [C, nw, cap] words with rows
+// on the fast axis; the shared core (scan_topk.cuh, ROWS) decodes one
+// word a thread while it stages, so no wider copy of a cache exists, and
+// the per-list i4 / raw-cache scales ride in the staged residual query
+// (SCALE_VEC). Their bound is the int8 arm's: operations, 2 * rot per
+// scored row on the bf16 tensor cores, the cache bytes (rot / 2 and
+// rot / 8 per row) far below it. The pq4 arm scores 4-bit PQ codes
+// against a table per (query, subspace) in shared memory, as the
+// reference RAFT's ivf_pq_compute_similarity does (the TPU kernel's
+// 16-pass one-hot contraction is not carried over): a block of PQ_QT = 16
+// queries builds its tables once (16 x p x 16 f32, 96 KB at p = 96; 64
+// queries would overflow the 227 KB a block may use) and then streams its
+// list, one row a thread, summing p table entries per (query, row). Its
+// bound is operations: p adds per scored (query, row) on the f32 CUDA
+// cores, plus 2 * pq_len per table entry; chip_smoke.py counts both.
 #include "scan_topk.cuh"
 
 using namespace rtt;
 
-template <typename T, bool STAGE_Q>
+template <typename T, bool STAGE_Q, int ROWS, bool SCALE_VEC>
 __global__ void __launch_bounds__(NTHREADS)
 ivf_list_scan_topk_kernel(const T* __restrict__ storage,
                           const int* __restrict__ indices,
@@ -48,7 +66,9 @@ ivf_list_scan_topk_kernel(const T* __restrict__ storage,
                           const float* __restrict__ norms,
                           const int* __restrict__ keep,
                           const float* __restrict__ centers, float scale,
-                          int cap, int d, int G, int k, int n_sub,
+                          const float* __restrict__ scale_vec,
+                          const float* __restrict__ row_scale, int cap,
+                          int d, int nw, int G, int k, int n_sub,
                           int metric, int round_ops,
                           float* __restrict__ out_d,
                           int* __restrict__ out_i) {
@@ -89,10 +109,15 @@ ivf_list_scan_topk_kernel(const T* __restrict__ storage,
     }
     t.qa[threadIdx.x] = qa;
   }
-  scan_topk<T, STAGE_Q>(t, topd, topp, queries, center, scale,
-                        storage + base * d, norms ? norms + base : nullptr,
-                        keep ? keep + base : nullptr, 0, size, d, k, metric,
-                        round_ops != 0);
+  // a list's rows: dense [cap, d], or packed [nw, cap] words
+  const size_t list_elems = ROWS == kRowsDense ? (size_t)cap * d
+                                               : (size_t)cap * nw;
+  scan_topk<T, STAGE_Q, ROWS, SCALE_VEC>(
+      t, topd, topp, queries, center, scale, storage + (size_t)l * list_elems,
+      norms ? norms + base : nullptr, keep ? keep + base : nullptr, 0, size,
+      d, k, metric, round_ops != 0,
+      SCALE_VEC ? scale_vec + (size_t)l * d : nullptr,
+      row_scale ? row_scale + base : nullptr, cap);
   __syncthreads();
 
   for (int e = threadIdx.x; e < QT * k; e += NTHREADS) {
@@ -105,68 +130,257 @@ ivf_list_scan_topk_kernel(const T* __restrict__ storage,
   }
 }
 
-template <typename T, bool STAGE_Q>
+// The pq4 arm: one block per (bucket, PQ_QT-query sub-tile). The block
+// builds its queries' tables in shared memory, lut[slot][s][v] = sum over
+// l < pq_len (in order) of the staged query component s * pq_len + l
+// times pq_centers[s][v][l], each product and sum rounded once and, under
+// round_ops, the query component, the codebook entry and the finished
+// entry rounded to bf16 (where the reference casts qv, its codebook
+// weights and lut_v). Thread (row r, query group g) then walks its row's
+// code words and sums, for each of its 4 queries, the table entries of
+// the row's codes in subspace order; neighbouring threads read
+// neighbouring rows of one word-row. The epilogue and the top-k are the
+// shared core's.
+constexpr int PQ_QT = 16;
+constexpr int PQ_QPT = PQ_QT / (NTHREADS / RT);   // queries per thread
+
+__global__ void __launch_bounds__(NTHREADS)
+ivf_pq4_scan_topk_kernel(const uint32_t* __restrict__ storage,
+                         const int* __restrict__ indices,
+                         const int* __restrict__ list_sizes,
+                         const int* __restrict__ bucket_list,
+                         const int* __restrict__ bucket_q,
+                         const float* __restrict__ queries,
+                         const float* __restrict__ norms,
+                         const int* __restrict__ keep,
+                         const float* __restrict__ centers,
+                         const float* __restrict__ pq_centers, int cap,
+                         int nw, int p, int pl, int G, int k, int n_sub,
+                         int metric, int round_ops,
+                         float* __restrict__ out_d, int* __restrict__ out_i) {
+  __shared__ float dist[PQ_QT][RT + PAD];
+  __shared__ int qidx[PQ_QT];
+  __shared__ float qas[PQ_QT];
+  extern __shared__ __align__(16) unsigned char dyn[];
+  float* lut = reinterpret_cast<float*>(dyn);          // [PQ_QT][p][16]
+  float* topd = lut + (size_t)PQ_QT * p * 16;
+  int* topp = reinterpret_cast<int*>(topd + PQ_QT * k);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int d = p * pl;
+  const bool rops = round_ops != 0;
+  const int b = blockIdx.x / n_sub;
+  const int g0 = (blockIdx.x % n_sub) * PQ_QT;
+  const int l = bucket_list[b];
+  int any = 0;
+  if (tid < PQ_QT) {
+    const int g = g0 + tid;
+    const int q = g < G ? bucket_q[(size_t)b * G + g] : -1;
+    qidx[tid] = q;
+    any = q >= 0;
+  }
+  const int size = __syncthreads_or(any) ? list_sizes[l] : 0;
+  const size_t base = (size_t)l * cap;
+  const float* center = centers ? centers + (size_t)l * d : nullptr;
+  if (tid < PQ_QT) {
+    const int q = qidx[tid];
+    float qa = 0.f;
+    if (q >= 0 && metric != kIP) {
+      // ||q - c||^2 of the f32 residual, in component order
+      const float* qr = queries + (size_t)q * d;
+      for (int c = 0; c < d; ++c) {
+        const float r = __fsub_rn(qr[c], center[c]);
+        qa = __fadd_rn(qa, __fmul_rn(r, r));
+      }
+    }
+    qas[tid] = qa;
+  }
+  for (int e = tid; e < PQ_QT * p * 16; e += NTHREADS) {
+    const int slot = e / (p * 16);
+    const int s = (e / 16) % p;
+    const int v = e % 16;
+    const int q = qidx[slot];
+    float acc = 0.f;
+    if (q >= 0) {
+      for (int j = 0; j < pl; ++j) {
+        const int c = s * pl + j;
+        const float qv = stage_query(queries[(size_t)q * d + c], center, c,
+                                     1.f, rops);
+        float w = pq_centers[((size_t)s * 16 + v) * pl + j];
+        if (rops) w = round_bf16(w);
+        acc = __fadd_rn(acc, __fmul_rn(qv, w));
+      }
+      if (rops) acc = round_bf16(acc);
+    }
+    lut[e] = acc;
+  }
+  for (int i = tid; i < PQ_QT * k; i += NTHREADS) {
+    topd[i] = INFINITY;
+    topp[i] = -1;
+  }
+  __syncthreads();
+
+  const int r = tid % RT;
+  const int g = tid / RT;
+  const uint32_t* words = storage + (size_t)l * nw * cap;
+  for (int r0 = 0; r0 < size; r0 += RT) {
+    const int pos = r0 + r;
+    const bool in = pos < size;
+    float acc[PQ_QPT];
+#pragma unroll
+    for (int i = 0; i < PQ_QPT; ++i) acc[i] = 0.f;
+    if (in) {
+      for (int w = 0; w < nw; ++w) {
+        const uint32_t word = words[(size_t)w * cap + pos];
+        const int s_end = min(8, p - w * 8);
+        for (int j = 0; j < s_end; ++j) {
+          const int code = (word >> (4 * j)) & 15u;
+          const float* row = lut + (size_t)(w * 8 + j) * 16 + code;
+#pragma unroll
+          for (int i = 0; i < PQ_QPT; ++i)
+            acc[i] = __fadd_rn(acc[i],
+                               row[(size_t)(g * PQ_QPT + i) * p * 16]);
+        }
+      }
+    }
+    const bool ok = in && (keep == nullptr || keep[base + pos] > 0);
+    const float xn = (ok && metric != kIP) ? norms[base + pos] : 0.f;
+    const float plen = sqrtf(fmaxf(xn, 1e-30f));
+#pragma unroll
+    for (int i = 0; i < PQ_QPT; ++i) {
+      const int slot = g * PQ_QPT + i;
+      dist[slot][r] =
+          ok ? epilogue_dist(acc[i], qas[slot], xn, plen, metric) : INFINITY;
+    }
+    __syncthreads();
+    for (int qq = warp; qq < PQ_QT; qq += NWARPS) {
+      if (qidx[qq] < 0) continue;
+      fold_candidates(topd + qq * k, topp + qq * k, k, dist[qq], r0, lane);
+    }
+    __syncthreads();
+  }
+
+  for (int e = tid; e < PQ_QT * k; e += NTHREADS) {
+    const int gq = g0 + e / k;
+    if (gq >= G) continue;
+    const size_t o = ((size_t)b * G + gq) * k + e % k;
+    const float dv = topd[e];
+    out_d[o] = dv;
+    out_i[o] = isinf(dv) ? -1 : indices[base + topp[e]];
+  }
+}
+
+template <typename T, bool STAGE_Q, int ROWS, bool SCALE_VEC>
 static int launch_as(const T* storage, const int* indices,
                      const int* list_sizes, const int* bucket_list,
                      const int* bucket_q, const float* queries,
                      const float* qaux, const float* norms, const int* keep,
-                     const float* centers, float scale, int cap, int d,
-                     int nb, int G, int k, int metric, int round_ops,
-                     float* out_d, int* out_i, cudaStream_t stream) {
+                     const float* centers, float scale,
+                     const float* scale_vec, const float* row_scale, int cap,
+                     int d, int nw, int nb, int G, int k, int metric,
+                     int round_ops, float* out_d, int* out_i,
+                     cudaStream_t stream) {
   const int n_sub = (G + QT - 1) / QT;
   const size_t smem = topk_smem_bytes(k);
+  auto kernel = ivf_list_scan_topk_kernel<T, STAGE_Q, ROWS, SCALE_VEC>;
   cudaError_t err = cudaFuncSetAttribute(
-      ivf_list_scan_topk_kernel<T, STAGE_Q>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ivf_list_scan_topk_kernel<T, STAGE_Q>
-      <<<nb * n_sub, NTHREADS, smem, stream>>>(
-          storage, indices, list_sizes, bucket_list, bucket_q, queries, qaux,
-          norms, keep, centers, scale, cap, d, G, k, n_sub, metric,
-          round_ops, out_d, out_i);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  kernel<<<nb * n_sub, NTHREADS, smem, stream>>>(
+      storage, indices, list_sizes, bucket_list, bucket_q, queries, qaux,
+      norms, keep, centers, scale, scale_vec, row_scale, cap, d, nw, G, k,
+      n_sub, metric, round_ops, out_d, out_i);
   return (int)cudaGetLastError();
 }
 
-// Residual or scaled queries are staged component by component; plain
-// queries (already rounded by the caller with round_ops) are loaded as
-// they are.
-template <typename T>
+// Residual, scaled or per-list-scaled queries are staged component by
+// component; plain queries (already rounded by the caller with round_ops)
+// are loaded as they are. Each mode is its own instantiation, so the
+// float arm compiles as it did before the packed arms.
+template <typename T, int ROWS>
 static int launch(const T* storage, const int* indices,
                   const int* list_sizes, const int* bucket_list,
                   const int* bucket_q, const float* queries,
                   const float* qaux, const float* norms, const int* keep,
-                  const float* centers, float scale, int cap, int d, int nb,
+                  const float* centers, float scale, const float* scale_vec,
+                  const float* row_scale, int cap, int d, int nw, int nb,
                   int G, int k, int metric, int round_ops, float* out_d,
                   int* out_i, cudaStream_t stream) {
-  if (centers != nullptr || scale != 1.f)
-    return launch_as<T, true>(storage, indices, list_sizes, bucket_list,
-                              bucket_q, queries, qaux, norms, keep, centers,
-                              scale, cap, d, nb, G, k, metric, round_ops,
-                              out_d, out_i, stream);
-  return launch_as<T, false>(storage, indices, list_sizes, bucket_list,
-                             bucket_q, queries, qaux, norms, keep, centers,
-                             scale, cap, d, nb, G, k, metric, round_ops,
-                             out_d, out_i, stream);
+#define RTT_LAUNCH(STAGE, VEC)                                               \
+  launch_as<T, STAGE, ROWS, VEC>(storage, indices, list_sizes, bucket_list,  \
+                                 bucket_q, queries, qaux, norms, keep,       \
+                                 centers, scale, scale_vec, row_scale, cap,  \
+                                 d, nw, nb, G, k, metric, round_ops, out_d,  \
+                                 out_i, stream)
+  if (scale_vec != nullptr) return RTT_LAUNCH(true, true);
+  if (centers != nullptr || scale != 1.f) return RTT_LAUNCH(true, false);
+  return RTT_LAUNCH(false, false);
+#undef RTT_LAUNCH
 }
 
-// storage [C, cap, d] of kind storage_kind (0 f32, 1 bf16, 2 int8);
-// indices [C, cap] int32; list_sizes [C]; bucket_list [nb]; bucket_q
-// [nb, G] (-1 = empty slot); queries [m, d] f32; qaux [m] f32 (null for IP,
-// and unread in residual L2 mode); norms [C, cap] f32 (null for IP); keep
-// [C, cap] int32 or null; centers [C, d] f32 (residual L2 mode) or null;
-// scale multiplies every staged query component; round_ops computes in
-// bf16: f32 rows and staged residual queries are rounded to bf16, plain
-// queries (no centers, scale 1) must come rounded already; out_d / out_i
-// [nb, G, k]. Returns a cudaError_t code.
+static int launch_pq4(const uint32_t* storage, const int* indices,
+                      const int* list_sizes, const int* bucket_list,
+                      const int* bucket_q, const float* queries,
+                      const float* norms, const int* keep,
+                      const float* centers, const float* pq_centers,
+                      int cap, int nw, int p, int pl, int nb, int G, int k,
+                      int metric, int round_ops, float* out_d, int* out_i,
+                      cudaStream_t stream) {
+  const int n_sub = (G + PQ_QT - 1) / PQ_QT;
+  const size_t smem =
+      (size_t)PQ_QT * p * 16 * sizeof(float) +
+      (size_t)PQ_QT * k * (sizeof(float) + sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(
+      ivf_pq4_scan_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  // tables past a block's shared memory: report the error, and clear it so
+  // that the next launch's cudaGetLastError does not return it again
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  ivf_pq4_scan_topk_kernel<<<nb * n_sub, NTHREADS, smem, stream>>>(
+      storage, indices, list_sizes, bucket_list, bucket_q, queries, norms,
+      keep, centers, pq_centers, cap, nw, p, pl, G, k, n_sub, metric,
+      round_ops, out_d, out_i);
+  return (int)cudaGetLastError();
+}
+
+// storage of kind storage_kind: 0 f32, 1 bf16, 2 int8 rows [C, cap, d];
+// 3 packed int4 (d = 8 nw), 4 packed sign bits (d = 32 nw), 5 packed
+// 4-bit PQ codes (d = p * pl), each [C, nw, cap] uint32 words. indices
+// [C, cap] int32; list_sizes [C]; bucket_list [nb]; bucket_q [nb, G] (-1 =
+// empty slot); queries [m, d] f32; qaux [m] f32 (null for IP, and unread
+// in residual L2 mode and by kind 5); norms [C, cap] f32 (null for IP);
+// keep [C, cap] int32 or null; centers [C, d] f32 (residual L2 mode) or
+// null; scale multiplies every staged query component, or scale_vec [C, d]
+// (non-null) per list and component (kinds 0-4); row_scale [C, cap]
+// multiplies each row's dot (kind 4, may be null); pq_centers [p, 16, pl]
+// (kind 5); round_ops computes in bf16: f32 rows and staged queries are
+// rounded to bf16, plain queries (no centers, scale 1) must come rounded
+// already; out_d / out_i [nb, G, k]. Returns a cudaError_t code.
 extern "C" int ivf_list_scan_topk(
     const void* storage, int storage_kind, const void* indices,
     const void* list_sizes, const void* bucket_list, const void* bucket_q,
     const void* queries, const void* qaux, const void* norms,
-    const void* keep, const void* centers, float scale, int cap, int d,
-    int nb, int G, int k, int metric, int round_ops, void* out_d,
-    void* out_i, void* stream) {
+    const void* keep, const void* centers, float scale,
+    const void* scale_vec, const void* row_scale, const void* pq_centers,
+    int cap, int d, int nw, int p, int pl, int nb, int G, int k, int metric,
+    int round_ops, void* out_d, void* out_i, void* stream) {
   if (k < 1 || k > KMAX || cap < 1 || d < 1 || nb < 1 || G < 1 ||
-      storage_kind < 0 || storage_kind > 2)
+      storage_kind < 0 || storage_kind > 5)
+    return (int)cudaErrorInvalidValue;
+  if (storage_kind >= 3 && (nw < 1 || (storage_kind == 3 && d != 8 * nw) ||
+                            (storage_kind == 4 && d != 32 * nw)))
+    return (int)cudaErrorInvalidValue;
+  if (storage_kind == 5 &&
+      (pq_centers == nullptr || p < 1 || pl < 1 || p > 8 * nw ||
+       d != p * pl || scale_vec != nullptr || metric == kCosine))
     return (int)cudaErrorInvalidValue;
   const auto* ix = static_cast<const int*>(indices);
   const auto* ls = static_cast<const int*>(list_sizes);
@@ -177,18 +391,41 @@ extern "C" int ivf_list_scan_topk(
   const auto* xn = static_cast<const float*>(norms);
   const auto* kp = static_cast<const int*>(keep);
   const auto* ct = static_cast<const float*>(centers);
+  const auto* sv = static_cast<const float*>(scale_vec);
+  const auto* rs = static_cast<const float*>(row_scale);
   auto* od = static_cast<float*>(out_d);
   auto* oi = static_cast<int*>(out_i);
   auto s = static_cast<cudaStream_t>(stream);
-  if (storage_kind == 1)
-    return launch(static_cast<const __nv_bfloat16*>(storage), ix, ls, bl, bq,
-                  q, qa, xn, kp, ct, scale, cap, d, nb, G, k, metric,
-                  round_ops, od, oi, s);
-  if (storage_kind == 2)
-    return launch(static_cast<const int8_t*>(storage), ix, ls, bl, bq, q, qa,
-                  xn, kp, ct, scale, cap, d, nb, G, k, metric, round_ops, od,
-                  oi, s);
-  return launch(static_cast<const float*>(storage), ix, ls, bl, bq, q, qa,
-                xn, kp, ct, scale, cap, d, nb, G, k, metric, round_ops, od,
-                oi, s);
+  const auto* words = static_cast<const uint32_t*>(storage);
+  switch (storage_kind) {
+    case 1:
+      return launch<__nv_bfloat16, kRowsDense>(
+          static_cast<const __nv_bfloat16*>(storage), ix, ls, bl, bq, q, qa,
+          xn, kp, ct, scale, sv, nullptr, cap, d, 0, nb, G, k, metric,
+          round_ops, od, oi, s);
+    case 2:
+      return launch<int8_t, kRowsDense>(
+          static_cast<const int8_t*>(storage), ix, ls, bl, bq, q, qa, xn, kp,
+          ct, scale, sv, nullptr, cap, d, 0, nb, G, k, metric, round_ops, od,
+          oi, s);
+    case 3:
+      return launch<uint32_t, kRowsI4>(words, ix, ls, bl, bq, q, qa, xn, kp,
+                                       ct, scale, sv, nullptr, cap, d, nw,
+                                       nb, G, k, metric, round_ops, od, oi,
+                                       s);
+    case 4:
+      return launch<uint32_t, kRowsBits>(words, ix, ls, bl, bq, q, qa, xn,
+                                         kp, ct, scale, sv, rs, cap, d, nw,
+                                         nb, G, k, metric, round_ops, od, oi,
+                                         s);
+    case 5:
+      return launch_pq4(words, ix, ls, bl, bq, q, xn, kp, ct,
+                        static_cast<const float*>(pq_centers), cap, nw, p, pl,
+                        nb, G, k, metric, round_ops, od, oi, s);
+    default:
+      return launch<float, kRowsDense>(
+          static_cast<const float*>(storage), ix, ls, bl, bq, q, qa, xn, kp,
+          ct, scale, sv, nullptr, cap, d, 0, nb, G, k, metric, round_ops, od,
+          oi, s);
+  }
 }

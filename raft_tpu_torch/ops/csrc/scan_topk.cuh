@@ -14,6 +14,17 @@
 // load; or, with STAGE_Q (the IVF-PQ residual queries), each component is
 // staged as ((q - center) * scale) and then rounded.
 //
+// Rows come in three layouts, fixed at compile time (ROWS): dense
+// [rows, d] of type T; packed signed int4, 8 components a 32-bit word; or
+// packed sign bits, 32 a word (IVF-PQ's i4 and RaBitQ caches). Packed
+// rows are stored transposed, word w of row p at rows[w * row_stride + p],
+// so neighbouring threads read neighbouring rows of one word-row; each
+// thread loads one word of the slice and writes its decoded components
+// (exact in bf16: [-8, 7] or +-1). In the RaBitQ layout `row_scale` (when
+// given) multiplies each row's dot before the epilogue. With STAGE_Q and
+// SCALE_VEC the staged query's scale is a per-component vector (the i4
+// and raw caches' per-list scales) instead of one float.
+//
 // Layout: 256 threads as 16 x 16, each owning a 4 x 4 micro tile of the
 // 64 x 64 (queries x rows) distance tile; the depth runs in slices of 32.
 // After each tile, warp w keeps the top-k of queries w, w+8, ...: lanes
@@ -50,6 +61,7 @@ constexpr int KMAX = 256;       // largest k a block keeps
 constexpr int KPL = KMAX / 32;  // list slots per lane during an insertion
 
 enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };
+enum Rows { kRowsDense = 0, kRowsI4 = 1, kRowsBits = 2 };
 
 struct __align__(16) Tiles {
   float qs[DK][QT + PAD];       // query slice, transposed
@@ -121,16 +133,54 @@ __device__ __forceinline__ void warp_insert(float* td, int* tp, int k,
   __syncwarp();
 }
 
+// Folds one query's row of RT tile distances `drow` (positions r0,
+// r0 + 1, ...) into its sorted list td/tp of length k, 32 candidates at a
+// time, one a lane: a ballot picks the lanes under the current k-th
+// distance and each is inserted in lane order.
+__device__ __forceinline__ void fold_candidates(float* td, int* tp, int k,
+                                                const float* drow, int r0,
+                                                int lane) {
+  for (int half = 0; half < RT; half += 32) {
+    const float cd = drow[half + lane];
+    const int cp = r0 + half + lane;
+    float thr = td[k - 1];
+    unsigned mask = __ballot_sync(0xffffffffu, cd < thr);
+    while (mask) {
+      const int src = __ffs(mask) - 1;
+      const float vd = __shfl_sync(0xffffffffu, cd, src);
+      const int vp = __shfl_sync(0xffffffffu, cp, src);
+      warp_insert(td, tp, k, vd, vp, lane);
+      thr = td[k - 1];
+      mask &= ~(1u << src);
+      mask &= __ballot_sync(0xffffffffu, cd < thr);
+    }
+  }
+}
+
+// The min-space distance of one (query, row) pair from its dot, the
+// query's qaux and the row's norm xn (unread for inner product) and
+// plen = sqrt(max(xn, 1e-30)) (read for cosine only).
+__device__ __forceinline__ float epilogue_dist(float dot, float qa, float xn,
+                                               float plen, int metric) {
+  if (metric == kL2)
+    return fmaxf(__fsub_rn(__fadd_rn(qa, xn), __fmul_rn(2.f, dot)), 0.f);
+  if (metric == kIP) return -dot;
+  return __fsub_rn(1.f, __fdiv_rn(dot, fmaxf(__fmul_rn(qa, plen), 1e-30f)));
+}
+
 // Scans positions [p_begin, p_end) of `rows` (row p at rows + p * d)
 // against the block's queries (t.qidx, with their qaux in t.qa, both set
 // by the caller) and leaves each query's top-k in topd / topp [QT * k],
 // sorted by (distance, position); unfilled slots hold (+inf, -1). `norms`
 // and `keep` are indexed by position and may be null (no norms for inner
 // product; no filter). With STAGE_Q queries are staged through
-// stage_query with `qcenter` (may be null), `qscale` and `round_ops`;
-// without it they are loaded as given. f32 rows are rounded to bf16 with
-// `round_ops`.
-template <typename T, bool STAGE_Q>
+// stage_query with `qcenter` (may be null), `qscale` (with SCALE_VEC the
+// vector `qscale_vec` [d]) and `round_ops`; without it they are loaded as
+// given. f32 rows are rounded to bf16 with `round_ops`. Packed rows
+// (ROWS) are words of type T = uint32_t, `row_stride` words apart per
+// word-row, and `row_scale` (RaBitQ, may be null) is indexed by position.
+template <typename T, bool STAGE_Q, int ROWS = kRowsDense,
+          bool SCALE_VEC = false>
 __device__ void scan_topk(Tiles& t, float* topd, int* topp,
                           const float* __restrict__ queries,
                           const float* __restrict__ qcenter, float qscale,
@@ -138,7 +188,10 @@ __device__ void scan_topk(Tiles& t, float* topd, int* topp,
                           const float* __restrict__ norms,
                           const int* __restrict__ keep, int p_begin,
                           int p_end, int d, int k, int metric,
-                          bool round_ops) {
+                          bool round_ops,
+                          const float* __restrict__ qscale_vec = nullptr,
+                          const float* __restrict__ row_scale = nullptr,
+                          int row_stride = 0) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -168,19 +221,55 @@ __device__ void scan_topk(Tiles& t, float* topd, int* topp,
         float v = 0.f;
         if (q >= 0 && d0 + c < d) {
           v = queries[(size_t)q * d + d0 + c];
-          if (STAGE_Q) v = stage_query(v, qcenter, d0 + c, qscale, round_ops);
+          if constexpr (STAGE_Q)
+            v = stage_query(v, qcenter, d0 + c,
+                            SCALE_VEC ? qscale_vec[d0 + c] : qscale,
+                            round_ops);
         }
         t.qs[c][r] = v;
       }
-      for (int e = tid; e < RT * DK; e += NTHREADS) {
-        const int r = e / DK, c = e % DK;
-        const int p = r0 + r;
-        float v = 0.f;
-        if (p < p_end && d0 + c < d) {
-          v = to_f32(rows[(size_t)p * d + d0 + c]);
-          if (std::is_same<T, float>::value && round_ops) v = round_bf16(v);
+      if constexpr (ROWS == kRowsDense) {
+        for (int e = tid; e < RT * DK; e += NTHREADS) {
+          const int r = e / DK, c = e % DK;
+          const int p = r0 + r;
+          float v = 0.f;
+          if (p < p_end && d0 + c < d) {
+            v = to_f32(rows[(size_t)p * d + d0 + c]);
+            if (std::is_same<T, float>::value && round_ops) v = round_bf16(v);
+          }
+          t.xs[c][r] = v;
         }
-        t.xs[c][r] = v;
+      } else {
+        // one word a thread: (row r, quarter h of the 32-component slice)
+        static_assert(RT * 4 == NTHREADS, "one packed word per thread");
+        const int r = tid % RT, h = tid / RT;
+        const int p = r0 + r;
+        if constexpr (ROWS == kRowsI4) {
+          // 4 words of 8 signed nibbles; d = 8 nw, so words past it are 0
+          const int w = d0 / 8 + h;
+          const bool ok = p < p_end && w * 8 < d;
+          const uint32_t word =
+              ok ? static_cast<uint32_t>(rows[(size_t)w * row_stride + p])
+                 : 0u;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            t.xs[h * 8 + j][r] =
+                ok ? static_cast<float>(static_cast<int>(word << (28 - 4 * j))
+                                        >> 28)
+                   : 0.f;
+        } else {
+          // one word of 32 sign bits (d = 32 nw); this thread decodes 8
+          const bool ok = p < p_end;
+          const uint32_t word =
+              ok ? static_cast<uint32_t>(rows[(size_t)(d0 / 32) * row_stride +
+                                              p])
+                 : 0u;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = h * 8 + j;
+            t.xs[c][r] = ok ? ((word >> c) & 1u ? 1.f : -1.f) : 0.f;
+          }
+        }
       }
       __syncthreads();
 #if RTT_STAGES >= 1
@@ -210,20 +299,18 @@ __device__ void scan_topk(Tiles& t, float* topd, int* topp,
       const bool ok = p < p_end && (keep == nullptr || keep[p] > 0);
       const float xn = (ok && metric != kIP) ? norms[p] : 0.f;
       const float plen = sqrtf(fmaxf(xn, 1e-30f));
+      float rs = 1.f;
+      if constexpr (ROWS == kRowsBits)
+        if (ok && row_scale != nullptr) rs = row_scale[p];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float dot = acc[i][j];
+        float dot = acc[i][j];
+        if constexpr (ROWS == kRowsBits) dot = __fmul_rn(dot, rs);
         float dv;
         if (!ok) {
           dv = INFINITY;
-        } else if (metric == kL2) {
-          dv = fmaxf(__fsub_rn(__fadd_rn(qa[i], xn), __fmul_rn(2.f, dot)),
-                     0.f);
-        } else if (metric == kIP) {
-          dv = -dot;
         } else {
-          dv = __fsub_rn(1.f,
-                         __fdiv_rn(dot, fmaxf(__fmul_rn(qa[i], plen), 1e-30f)));
+          dv = epilogue_dist(dot, qa[i], xn, plen, metric);
         }
         t.dist[ty * 4 + i][tx * 4 + j] = dv;
       }
@@ -242,21 +329,7 @@ __device__ void scan_topk(Tiles& t, float* topd, int* topp,
         tp[0] = r0;
       }
 #else
-      for (int half = 0; half < RT; half += 32) {
-        const float cd = t.dist[qq][half + lane];
-        const int cp = r0 + half + lane;
-        float thr = td[k - 1];
-        unsigned mask = __ballot_sync(0xffffffffu, cd < thr);
-        while (mask) {
-          const int src = __ffs(mask) - 1;
-          const float vd = __shfl_sync(0xffffffffu, cd, src);
-          const int vp = __shfl_sync(0xffffffffu, cp, src);
-          warp_insert(td, tp, k, vd, vp, lane);
-          thr = td[k - 1];
-          mask &= ~(1u << src);
-          mask &= __ballot_sync(0xffffffffu, cd < thr);
-        }
-      }
+      fold_candidates(td, tp, k, t.dist[qq], r0, lane);
 #endif
     }
     __syncthreads();

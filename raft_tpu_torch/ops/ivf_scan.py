@@ -1,15 +1,15 @@
 """IVF list scan + per-list top-k: the CUDA kernel and its plain version.
 
 Replaces ``raft_tpu/ops/ivf_scan.py:_scan_kernel`` (``pallas_call`` at
-:547): the float-storage arm and the int8 rows that its float branch
-widens (:302-308, IVF-PQ's decoded-residual cache), with exact
-extraction. One step per bucket — one query group against one inverted
-list: the list is found through ``bucket_list[b]``, ``dots = q . row``
-with f32 accumulation, the L2 / inner-product / cosine epilogue in
-min-space, columns past ``list_sizes[l]`` or with ``keep == 0`` masked,
-and each query's top-k (ties to the lower list position) emitted with the
-**stored global ids** read from the list's id row. Tails come back as
-(+inf, -1).
+:547) with exact extraction: the float-storage arm, the int8 rows that its
+float branch widens (:302-308, IVF-PQ's int8 caches) and the three packed
+storage arms (:221-296, IVF-PQ's compressed caches). One step per bucket —
+one query group against one inverted list: the list is found through
+``bucket_list[b]``, ``dots = q . row`` with f32 accumulation, the L2 /
+inner-product / cosine epilogue in min-space, columns past
+``list_sizes[l]`` or with ``keep == 0`` masked, and each query's top-k
+(ties to the lower list position) emitted with the **stored global ids**
+read from the list's id row. Tails come back as (+inf, -1).
 
 The reference takes the query group pre-gathered as ``qv`` [nb, G, d] and
 ``qaux`` [nb, G]; here the kernel gathers queries itself through
@@ -28,20 +28,41 @@ Residual queries (IVF-PQ, ``ivf_pq.py:2043-2062``). With ``centers``
 ``(queries[q] - centers[l]) * scale`` and ``qaux`` is the kernel's own
 ``||queries[q] - centers[l]||^2`` of the unscaled f32 residual, summed
 over components in order (L2 only); inner product passes ``scale`` alone
-(``queries[q] * scale``). The kernel builds these while it stages, so the
-[nb, G, d] residual slab never exists.
+(``queries[q] * scale``). ``scale`` is one float or a per-list,
+per-component tensor [C, d] (the i4 and raw caches' scales, which the
+reference folds into ``qv``). The kernel builds these while it stages,
+so the [nb, G, d] residual slab never exists.
+
+Packed storage, ``[C, nw, cap]`` int32 words holding the reference's
+uint32 bits, rows on the fast axis (at most one of the three):
+
+* ``packed_i4`` (:281-296): 8 signed nibbles a word, component ``8w + j``
+  is ``(word << (28 - 4j)) >> 28`` in [-8, 7]; ``d = 8 nw``. The
+  dequantization scales ride in ``scale``.
+* ``packed_bits`` (:256-280, :310-312, RaBitQ): 32 sign bits a word, bit
+  ``j`` of word ``w`` decodes component ``32w + j`` to ``2 bit - 1``;
+  ``d = 32 nw``, and queries (and centers) must be zero-padded to that
+  width so the pad bits score nothing. ``row_scale`` [C, cap] (the
+  estimator's ``fac``) multiplies each row's dot before the epilogue;
+  ``norms`` are the true residual norms.
+* ``pq_centers`` [p, 16, pq_len] f32 (``packed_pq4``, :221-255): 4-bit PQ
+  codes, 8 a word, scored against the per-(query, subspace) table
+  ``lut[s, v] = sum_l qv[s pq_len + l] * pq_centers[s, v, l]`` (summed
+  over l in order), so ``dots = sum_s lut[s, code_s]`` summed over s in
+  order; ``d = p * pq_len`` and ``nw >= p / 8``. Under bf16 compute the
+  staged query, the codebook and each table entry are rounded to bf16,
+  where the reference casts ``qv``, the codebook weights and ``lut_v``.
 
 On a CUDA tensor :func:`ivf_list_scan_topk` launches
 ``csrc/ivf_list_scan_topk.cu`` or raises; on a CPU tensor it runs
-:func:`ivf_list_scan_topk_plain`; nothing else. The packed storage arms
-(i4, pq4, RaBitQ bits) and the binned / fold extractions are not ported
-(ROADMAP.md, Queue B).
+:func:`ivf_list_scan_topk_plain`; nothing else. The binned / fold
+extractions are not ported (ROADMAP.md, Queue B).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -51,19 +72,58 @@ from raft_tpu_torch.ops.fused_topk import COSINE, IP, K_MAX, L2, _epilogue
 from raft_tpu_torch.utils.precision import dist_dot, round_bf16
 
 _PLAIN_BUCKETS = 64     # buckets per plain-version batch
-# storage dtype -> the kernel's storage_kind
+# the kernel's storage_kind: dense rows by dtype, packed words by arm
 _STORAGE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+I4, BITS, PQ4 = 3, 4, 5
 
 
-def _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
-           metric_kind, qaux, norms, centers, compute_dtype, k_max):
+def storage_kind(storage: torch.Tensor, packed_i4: bool = False,
+                 packed_bits: bool = False, pq_centers=None) -> int:
+    """The kernel's storage kind: 0-2 dense f32 / bf16 / int8 rows, or the
+    packed arm I4 / BITS / PQ4; raises on an arm clash or a bad type."""
+    n_arms = int(packed_i4) + int(packed_bits) + int(pq_centers is not None)
+    if n_arms > 1:
+        raise ValueError("packed_i4, packed_bits and pq_centers are "
+                         "mutually exclusive")
+    if n_arms:
+        if storage.dim() != 3 or storage.dtype != torch.int32:
+            raise ValueError(f"packed storage must be [C, nw, cap] int32 "
+                             f"words, got {tuple(storage.shape)} "
+                             f"{storage.dtype}")
+        return I4 if packed_i4 else BITS if packed_bits else PQ4
     if storage.dim() != 3:
         raise ValueError(f"storage must be [C, cap, d], got "
                          f"{tuple(storage.shape)}")
     if storage.dtype not in _STORAGE_KIND:
         raise ValueError(f"storage must be f32, bf16 or int8, got "
                          f"{storage.dtype}")
-    C, cap, d = storage.shape
+    return _STORAGE_KIND[storage.dtype]
+
+
+def _geometry(storage, kind, pq_centers) -> Tuple[int, int, int]:
+    """(C, cap, d): d is the width of the queries the storage is scored
+    against."""
+    if kind < I4:
+        return tuple(storage.shape)
+    C, nw, cap = storage.shape
+    if kind == I4:
+        return C, cap, nw * 8
+    if kind == BITS:
+        return C, cap, nw * 32
+    if pq_centers.dim() != 3 or pq_centers.shape[1] != 16:
+        raise ValueError(f"pq_centers must be [p, 16, pq_len] (4-bit "
+                         f"codes), got {tuple(pq_centers.shape)}")
+    p, _, pl = pq_centers.shape
+    if p > nw * 8:
+        raise ValueError(f"pq_centers has {p} subspaces, more than the "
+                         f"{nw * 8} codes a row packs")
+    return C, cap, p * pl
+
+
+def _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
+           metric_kind, qaux, norms, centers, compute_dtype, k_max, scale,
+           kind, pq_centers, row_scale):
+    C, cap, d = _geometry(storage, kind, pq_centers)
     if tuple(indices.shape) != (C, cap) or tuple(list_sizes.shape) != (C,):
         raise ValueError("indices must be [C, cap] and list_sizes [C]")
     if bucket_q.dim() != 2 or bucket_q.shape[0] != bucket_list.shape[0]:
@@ -80,6 +140,20 @@ def _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
         if tuple(centers.shape) != (C, d):
             raise ValueError(f"centers must be [{C}, {d}], got "
                              f"{tuple(centers.shape)}")
+    if isinstance(scale, torch.Tensor) and tuple(scale.shape) != (C, d):
+        raise ValueError(f"a per-list scale must be [{C}, {d}], got "
+                         f"{tuple(scale.shape)}")
+    if kind == PQ4 and (isinstance(scale, torch.Tensor) or scale != 1.0):
+        raise ValueError("the pq4 arm is scale-free (its table holds the "
+                         "codebook)")
+    if row_scale is not None:
+        if kind != BITS:
+            raise ValueError("row_scale belongs to the packed_bits arm")
+        if tuple(row_scale.shape) != (C, cap):
+            raise ValueError(f"row_scale must be [{C}, {cap}], got "
+                             f"{tuple(row_scale.shape)}")
+    if metric_kind == COSINE and kind >= I4:
+        raise ValueError("the packed arms score L2 or inner product")
     if metric_kind != IP and (norms is None or
                               (qaux is None and centers is None)):
         raise ValueError("L2 and cosine need norms [C, cap] and qaux [m] "
@@ -106,41 +180,51 @@ def ivf_list_scan_topk(storage: torch.Tensor, indices: torch.Tensor,
                        metric_kind: int,
                        compute_dtype: Optional[str] = None,
                        centers: Optional[torch.Tensor] = None,
-                       scale: float = 1.0,
+                       scale: Union[float, torch.Tensor] = 1.0,
+                       packed_i4: bool = False, packed_bits: bool = False,
+                       pq_centers: Optional[torch.Tensor] = None,
+                       row_scale: Optional[torch.Tensor] = None,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan each bucket's list against its query group; returns
     (out_d [nb, G, k] f32 min-space, out_i [nb, G, k] int32 global ids).
 
-    ``storage`` [C, cap, d] f32, bf16 or int8; ``indices`` [C, cap] int32;
-    ``list_sizes`` [C]; ``bucket_list`` [nb]; ``bucket_q`` [nb, G];
-    ``queries`` [m, d]; ``qaux`` [m] (||q||^2 for L2, ||q|| for cosine;
-    None for inner product and with ``centers``) and ``norms`` [C, cap]
-    (||x||^2, None for inner product); ``keep`` [C, cap] (nonzero =
-    eligible) or None; ``compute_dtype``, ``centers`` and ``scale`` as in
-    the module docstring."""
+    ``storage`` [C, cap, d] f32, bf16 or int8, or [C, nw, cap] int32
+    packed words; ``indices`` [C, cap] int32; ``list_sizes`` [C];
+    ``bucket_list`` [nb]; ``bucket_q`` [nb, G]; ``queries`` [m, d];
+    ``qaux`` [m] (||q||^2 for L2, ||q|| for cosine; None for inner product
+    and with ``centers``) and ``norms`` [C, cap] (||x||^2, None for inner
+    product); ``keep`` [C, cap] (nonzero = eligible) or None;
+    ``compute_dtype``, ``centers``, ``scale`` and the packed arms
+    (``packed_i4``, ``packed_bits`` with ``row_scale``, ``pq_centers``)
+    as in the module docstring."""
     cd = _compute_dtype(queries, compute_dtype)
+    kind = storage_kind(storage, packed_i4, packed_bits, pq_centers)
     _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
-           metric_kind, qaux, norms, centers, cd, K_MAX)
+           metric_kind, qaux, norms, centers, cd, K_MAX, scale, kind,
+           pq_centers, row_scale)
     if storage.device.type == "cpu":
         return ivf_list_scan_topk_plain(
             storage, indices, list_sizes, bucket_list, bucket_q, queries,
             qaux, norms, keep, k=k, metric_kind=metric_kind,
-            compute_dtype=cd, centers=centers, scale=scale)
+            compute_dtype=cd, centers=centers, scale=scale,
+            packed_i4=packed_i4, packed_bits=packed_bits,
+            pq_centers=pq_centers, row_scale=row_scale)
     if not storage.is_cuda:
         raise ValueError(f"ivf_list_scan_topk takes CPU or CUDA tensors, got "
                          f"{storage.device}")
-    return _launch(storage, indices, list_sizes, bucket_list, bucket_q,
+    return _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
                    queries, qaux, norms, keep, int(k), int(metric_kind),
-                   cd == "bf16", centers, float(scale))
+                   cd == "bf16", centers, scale, pq_centers, row_scale)
 
 
 ivf_list_scan_topk.launches = 0
 
 
-def _launch(storage, indices, list_sizes, bucket_list, bucket_q, queries,
-            qaux, norms, keep, k, metric_kind, bf16, centers, scale):
+def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
+            queries, qaux, norms, keep, k, metric_kind, bf16, centers, scale,
+            pq_centers, row_scale):
     dev = storage.device
-    C, cap, d = storage.shape
+    C, cap, d = _geometry(storage, kind, pq_centers)
     nb, G = bucket_q.shape
 
     def i32(t):
@@ -153,14 +237,25 @@ def _launch(storage, indices, list_sizes, bucket_list, bucket_q, queries,
 
     st = storage.contiguous()
     q32 = f32(queries)
-    if bf16 and centers is None and ctypes.c_float(scale).value == 1.0:
+    vec = isinstance(scale, torch.Tensor)
+    scalar = 1.0 if vec else float(scale)
+    if bf16 and centers is None and not vec and kind != PQ4 and \
+            ctypes.c_float(scalar).value == 1.0:
         # plain queries are rounded once here; the kernel rounds only the
-        # residual queries it builds while staging
+        # residual or scaled queries it builds while staging
         q32 = round_bf16(q32)
+    p = pl = nw = 0
+    if kind >= I4:
+        nw = st.shape[1]
+    if kind == PQ4:
+        # a p or k whose tables overflow a block's shared memory comes
+        # back from the launch as a CUDA error
+        p, _, pl = pq_centers.shape
     args = dict(ix=i32(indices), ls=i32(list_sizes), bl=i32(bucket_list),
                 bq=i32(bucket_q), qa=None if centers is not None
                 else f32(qaux), xn=f32(norms), kp=i32(keep),
-                ct=f32(centers))
+                ct=f32(centers), sv=f32(scale) if vec else None,
+                rs=f32(row_scale), pc=f32(pq_centers))
     out_d = torch.empty((nb, G, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nb, G, k), dtype=torch.int32, device=dev)
 
@@ -168,17 +263,19 @@ def _launch(storage, indices, list_sizes, bucket_list, bucket_q, queries,
     fn = lib.ivf_list_scan_topk
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_void_p] * 9 + [ctypes.c_float]
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
 
     ptr = _build.ptr
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptr(st), _STORAGE_KIND[st.dtype], ptr(args["ix"]),
-                ptr(args["ls"]), ptr(args["bl"]), ptr(args["bq"]), ptr(q32),
-                ptr(args["qa"]), ptr(args["xn"]), ptr(args["kp"]),
-                ptr(args["ct"]), scale, cap, d, nb, G, k, metric_kind,
-                int(bf16), ptr(out_d), ptr(out_i), stream)
+        rc = fn(ptr(st), kind, ptr(args["ix"]), ptr(args["ls"]),
+                ptr(args["bl"]), ptr(args["bq"]), ptr(q32), ptr(args["qa"]),
+                ptr(args["xn"]), ptr(args["kp"]), ptr(args["ct"]), scalar,
+                ptr(args["sv"]), ptr(args["rs"]), ptr(args["pc"]), cap, d,
+                nw, p, pl, nb, G, k, metric_kind, int(bf16), ptr(out_d),
+                ptr(out_i), stream)
     _build.check(lib, "ivf_list_scan_topk", rc)
     ivf_list_scan_topk.launches += 1
     return out_d, out_i
@@ -194,6 +291,47 @@ def sq_norms_in_order(r: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def unpack_fields(words, n: int, bits: int,
+                  signed: bool = False) -> torch.Tensor:
+    """[..., nw] int32 words -> [..., n] int32 fields of ``bits`` bits,
+    ``32 // bits`` a word from the low end: field ``j`` is in word ``j //
+    (32 // bits)``. ``signed`` sign-extends them, ``(word << (32 - bits -
+    shift)) >> (32 - bits)`` (the i4 arm's decode). The one decoder of
+    the packed caches: PQ codes, signed nibbles and sign bits."""
+    w = torch.as_tensor(words).to(torch.int32)
+    cpw = 32 // bits
+    j = torch.arange(n, device=w.device)
+    sel = w.index_select(-1, j // cpw)
+    shift = ((j % cpw) * bits).to(torch.int32)
+    if signed:
+        return (sel << (32 - bits - shift)) >> (32 - bits)
+    return (sel >> shift) & ((1 << bits) - 1)
+
+
+def _pq4_dots(qv: torch.Tensor, codes: torch.Tensor, pq_centers,
+              bf16: bool) -> torch.Tensor:
+    """The pq4 arm's dots [bb, G, cap]: each (query, subspace) table
+    summed over pq_len in order and rounded as the operands are, then the
+    rows' table entries summed over subspaces in order."""
+    bb, G, _ = qv.shape
+    p, _, pl = pq_centers.shape
+    pqc = pq_centers.float()
+    if bf16:
+        pqc = round_bf16(pqc)
+    q4 = qv.reshape(bb, G, p, 1, pl)
+    lut = torch.zeros((bb, G, p, 16), dtype=torch.float32, device=qv.device)
+    for l in range(pl):
+        lut = lut + q4[..., l] * pqc[:, :, l]
+    if bf16:
+        lut = round_bf16(lut)
+    cap = codes.shape[1]
+    dots = torch.zeros((bb, G, cap), dtype=torch.float32, device=qv.device)
+    for s in range(p):
+        idx = codes[:, None, :, s].long().expand(bb, G, cap)
+        dots = dots + torch.gather(lut[:, :, s, :], 2, idx)
+    return dots
+
+
 def ivf_list_scan_topk_plain(storage: torch.Tensor, indices: torch.Tensor,
                              list_sizes: torch.Tensor,
                              bucket_list: torch.Tensor,
@@ -204,22 +342,32 @@ def ivf_list_scan_topk_plain(storage: torch.Tensor, indices: torch.Tensor,
                              metric_kind: int,
                              compute_dtype: Optional[str] = None,
                              centers: Optional[torch.Tensor] = None,
-                             scale: float = 1.0,
+                             scale: Union[float, torch.Tensor] = 1.0,
+                             packed_i4: bool = False,
+                             packed_bits: bool = False,
+                             pq_centers: Optional[torch.Tensor] = None,
+                             row_scale: Optional[torch.Tensor] = None,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: batches of buckets gather
-    their list blocks and queries (subtracting, scaling and rounding as
-    the kernel stages them), take a batched f32 product, mask, and keep
-    each query's top-k with a stable sort (ties to the lower list
-    position). It keeps any k up to the capacity (the kernel: 256)."""
+    their list blocks (decoding packed words) and queries (subtracting,
+    scaling and rounding as the kernel stages them), take a batched f32
+    product (the pq4 arm: table lookups summed in the kernel's order),
+    mask, and keep each query's top-k with a stable sort (ties to the
+    lower list position). It keeps any k up to the capacity (the kernel:
+    256)."""
     cd = _compute_dtype(queries, compute_dtype)
+    kind = storage_kind(storage, packed_i4, packed_bits, pq_centers)
     _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
-           metric_kind, qaux, norms, centers, cd, storage.shape[1])
-    C, cap, d = storage.shape
+           metric_kind, qaux, norms, centers, cd, indices.shape[1], scale,
+           kind, pq_centers, row_scale)
+    cap = indices.shape[1]
     nb, G = bucket_q.shape
     dev = storage.device
     bf16 = cd == "bf16"
     q32 = queries.to(dev).float()
-    sc = torch.tensor(float(scale), dtype=torch.float32, device=dev)
+    vec = isinstance(scale, torch.Tensor)
+    sc = (scale.to(dev).float() if vec
+          else torch.tensor(float(scale), dtype=torch.float32, device=dev))
     col = torch.arange(cap, device=dev)
     out_d, out_i = [], []
     for b0 in range(0, nb, _PLAIN_BUCKETS):
@@ -233,11 +381,27 @@ def ivf_list_scan_topk_plain(storage: torch.Tensor, indices: torch.Tensor,
             qa = sq_norms_in_order(qv)[:, :, None]        # [bb, G, 1]
         elif metric_kind != IP:
             qa = qaux.to(dev).float()[qsafe][:, :, None]
-        qv = qv * sc
-        blk = storage[bl].float()                         # [bb, cap, d]
+        qv = qv * (sc[bl][:, None, :] if vec else sc)
         if bf16:
-            qv, blk = round_bf16(qv), round_bf16(blk)
-        dots = dist_dot(qv, blk.transpose(1, 2))          # [bb, G, cap]
+            qv = round_bf16(qv)
+        if kind == PQ4:
+            codes = unpack_fields(storage[bl].transpose(1, 2),
+                                  pq_centers.shape[0], 4)     # [bb, cap, p]
+            dots = _pq4_dots(qv, codes, pq_centers.to(dev), bf16)
+        else:
+            if kind == I4:
+                blk = unpack_fields(storage[bl].transpose(1, 2), qv.shape[2],
+                                    4, signed=True).float()
+            elif kind == BITS:
+                blk = (2 * unpack_fields(storage[bl].transpose(1, 2),
+                                         qv.shape[2], 1) - 1).float()
+            else:
+                blk = storage[bl].float()                 # [bb, cap, d]
+                if bf16:
+                    blk = round_bf16(blk)
+            dots = dist_dot(qv, blk.transpose(1, 2))      # [bb, G, cap]
+        if row_scale is not None:
+            dots = dots * row_scale.to(dev).float()[bl][:, None, :]
         xn = None if metric_kind == IP else norms[bl].float()[:, None, :]
         dist = _epilogue(dots, metric_kind, qa, xn)
         valid = col[None, :] < list_sizes[bl].long()[:, None]   # [bb, cap]

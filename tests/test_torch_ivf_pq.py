@@ -2,7 +2,8 @@
 the JAX reference: code words, the encoder, the reconstructed norms and
 the int8 cache on quantizers the reference trained; extend; the shared
 index file in both directions; coarse margins; the port's own build by
-recall; and the cache rungs that are not ported.
+recall; and the cache rungs a build gives (tests/test_torch_ivf_pq_rungs.py
+holds each rung against the reference).
 
 Tolerances: code words and the int8 cache bit for bit (the cache is built
 from codes with the reference's scale bits); labels equal; codes equal
@@ -191,18 +192,20 @@ def test_streamed_build_equals_whole_build(data):
 
 
 def test_cache_rungs_not_ported_raise(data, monkeypatch):
+    """The build gives each cache rung it is asked for (none raises any
+    more); with no rung that fits, no cache (as in the reference); an
+    explicit i8 that does not fit gives no cache; "auto" below the i8
+    budget takes i4; cosine is refused."""
     x, _ = data
-    for kind in ("i4", "pq4", "rabitq"):
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
-            ivf_pq.build(ivf_pq.IndexParams(n_lists=4, kmeans_n_iters=2,
-                                            cache_dtype=kind), x[:500],
-                         device="cpu")
-    # "auto" past the int8 budget would pick a smaller rung: raise, do not
-    # fall silently to no cache; with no rung that fits, no cache (as in
-    # the reference); an explicit i8 that does not fit gives no cache too
+    want = {"i4": ("i4", 8), "pq4": ("pq4", 4), "rabitq": ("rabitq", 8)}
+    for dtype, (kind, bits) in want.items():
+        ix = ivf_pq.build(ivf_pq.IndexParams(
+            n_lists=4, kmeans_n_iters=2, pq_dim=8, pq_bits=bits,
+            cache_dtype=dtype), x[:500], device="cpu")
+        assert ix.cache_kind == kind
+        assert ix.recon_cache.dtype == torch.int32
     monkeypatch.setattr(ivf_pq, "_CACHE_BUDGET", 4 * 128 * 16)
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        ivf_pq._cache_kind_for(True, "auto", 4, 128, 24)
+    assert ivf_pq._cache_kind_for(True, "auto", 4, 128, 24) == "i4"
     assert ivf_pq._cache_kind_for(True, "auto", 4, 1024, 24) is None
     monkeypatch.setattr(ivf_pq, "_CACHE_BUDGET", 1000)
     ix = ivf_pq.build(ivf_pq.IndexParams(n_lists=4, kmeans_n_iters=2,
