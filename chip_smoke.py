@@ -21,17 +21,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
              per-list scales on the same kinds of cases; for the
              nn-descent join C < K, K = 1, K = 128, d off a multiple of 4
              and duplicate ids; for the beam step both arms, emitted
-             candidates, m off any tile and masked parents), then at the
-             paths' own shapes; then a small IVF-Flat, a small IVF-PQ (L2
-             and inner product, then one per cache rung: i4, pq4,
-             RaBitQ, raw i4, raw i8) and a small CAGRA search on the card
+             candidates, m off any tile and masked parents; kernel 2's
+             binned and binned_deep extraction arms on every storage
+             kind, caps 256 and 384, k 1 to 256, with duplicate rows,
+             bit for bit wherever the exact arm is, and refused at cap
+             128), then at the paths' own shapes; then a small IVF-Flat,
+             a small IVF-PQ (L2 and inner product, then one per cache
+             rung: i4, pq4, RaBitQ, raw i4, raw i8), each with the exact
+             and the binned arm, and a small CAGRA search on the card
              against the same index searched on the CPU;
 4. IVF-Flat path — on 1,000,000 x 128 f32 SIFT-like rows made on the card
              from a seed: build with n_lists=1024, search 10,000 queries
-             with n_probes=64 and k=10, recall@10 against the port's exact
-             brute force on 1,000 queries (>= 0.90), QPS as the median of
-             5 timed batches after a warm-up, and a profiler breakdown of
-             one batch;
+             with n_probes=64 and k=10 at local_recall_target=1.0 (the
+             exact arm), recall@10 against the port's exact brute force on
+             1,000 queries (>= 0.90), QPS as the median of 5 timed batches
+             after a warm-up, and a profiler breakdown of one batch; then
+             its default search (phase 8);
 5. CAGRA paths — on the same rows: (a) nn-descent
              (intermediate_graph_degree=64, at most 80 iterations) ->
              optimize (graph_degree=32) -> packed inline layout, with the
@@ -39,37 +44,54 @@ Phases, each of which fails the run (non-zero exit, no result line):
              build and recall at nn-descent's default of 20 iterations
              (reported, not gated); (b) the reference's default build, an
              IVF-PQ self-search refined exactly -> optimize -> packed
-             layout. Each part timed; search the 10,000 queries with
-             n_seeds=64, max_iterations=15 and k=10; recall@10 as above
-             (>= 0.90), QPS and a profile as above;
+             layout, its self-search at the default target (binned_deep
+             at k = 64, with the self-search graph's recall@63 on 1,000
+             sampled nodes). Each part timed; search the 10,000 queries
+             with n_seeds=64, max_iterations=15 and k=10; recall@10 as
+             above (>= 0.90), QPS and a profile as above;
 6. IVF-PQ path — the JAX package's DEEP-10M configuration
              (bench.py:283-343) on 10,000,000 x 96 SIFT-like rows: the
              streamed build (batch_size=2,000,000, n_lists=1024,
              pq_dim=48, pq_bits=8, the default int8 cache), split into
              train / encode / pack / rec_norms / cache; search 10,000
-             queries with n_probes=128 and k=10: recall@10 on 1,000
-             queries (>= 0.85), QPS, launches per search, a profile; the
-             refined search (30 candidates refined exactly to 10, recall
-             >= 0.95);
+             queries with n_probes=128 and k=10 at local_recall_target
+             1.0: recall@10 on 1,000 queries (>= 0.85), QPS, launches per
+             search, a profile; the refined search (30 candidates refined
+             exactly to 10, recall >= 0.95); then phase 8;
 7. IVF-PQ rungs — the compressed caches at the same configuration, on
              the same rows and queries, one index at a time: (a)
              cache_dtype="i4"; (b) attach_raw_residual_cache(dtype="i4")
              on the default index; (c) pq_dim=96, pq_bits=4,
              cache_dtype="pq4"; (d) attach_rabitq_cache on the default
-             index, searched at k=40. Each: build / attach seconds by
-             part, cache GB, recall@10 raw (>= 0.85 for a-c) and refined
+             index, searched at k=40. Each, at local_recall_target=1.0:
+             build / attach seconds by part, cache GB, recall@10 raw
+             (>= 0.85 for a-c) and refined
              (30 candidates, exact refine; >= 0.95 for a-c; RaBitQ from
              40 and from 80 candidates, the smaller that reaches
              RABITQ_REFINED_RECALL_FLOOR, or the run fails), QPS, launches per
-             search, a profile, and the arm timed at its shapes. Every
-             kernel of a path must have launched during that path's run
-             (counts set to 0 just before it, read just after);
-8. report  — each kernel (and kernel 2's int8 arm) timed at its path's
+             search, a profile, and the arm timed at its shapes; then the
+             default search on the same index (phase 8). Every kernel of a
+             path must have launched during that path's run (counts set
+             to 0 just before it, read just after);
+8. defaults — at the reference's default local_recall_target
+             (0.95), on the indexes, queries and truth of phases 4, 6 and
+             7: IVF-Flat (binned at k=10), IVF-PQ int8 (binned at k=10)
+             and its refined search (binned_deep at 30, refined to 10),
+             the i4, raw i4 and pq4 rungs (binned at k=10) and RaBitQ
+             (binned_deep at 40, refined to 10): recall@10, QPS, kernel
+             2's launches by arm, a profile, and the arm timed at the
+             search's shapes by stage beside its plain version and bound.
+             Each must reach its exact run's recall less 0.05 (raw, and
+             refined where refined); IVF-Flat also 0.90, refined IVF-PQ
+             0.95; the raw rungs' absolute floor is printed, not held;
+9. report  — each kernel (and kernel 2's int8 arm) timed at its path's
              shapes beside its plain version and its bound (the scan
              kernels also by stage: staging loads and epilogue, dots,
-             top-k selection; the packed arms were timed on their rungs'
-             paths); then the nvidia-smi line, one JSON line of
-             per-kernel numbers, and last the result line.
+             top-k selection; the packed and binned arms were timed on
+             their paths); then the nvidia-smi line, one JSON line of
+             per-kernel numbers (binned from the IVF-Flat default search,
+             binned_deep from the refined IVF-PQ one), and last the
+             result line.
 
 Tolerances: the brute-force, list-scan and join kernels and their plain
 versions sum f32 products in different orders, so distances agree to
@@ -80,7 +102,9 @@ its neighbour in the row (a tie). The int8, i4 and sign-bit arms'
 residual queries, their qaux and the operand rounding are computed in one
 order by both, so only the dots' sum order differs. The pq4 arm, and the
 beam step, and their plain versions round and sum in one fixed order, so
-they must agree bit for bit.
+they must agree bit for bit. The binned arms keep what the reference's
+bin rules keep from the same distances, so wherever the exact arm agrees
+bit for bit, they must too.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -102,6 +126,9 @@ H100_BF16_FLOPS = 989e12               # bf16 tensor cores, dense
 RTOL = ATOL = 1e-4
 F32, BF16 = torch.float32, torch.bfloat16
 RECALL_FLOOR = 0.90
+# a default search (local_recall_target 0.95, the binned arms) may lose at
+# most the reference's per-list budget, 1 - 0.95, of its exact run's recall
+RECALL_LOSS_BUDGET = 0.05
 IVF_PQ_RECALL_FLOOR = 0.85         # IVF-PQ at the DEEP-10M config
 REFINED_RECALL_FLOOR = 0.95        # the same, 3k candidates refined to k
 # the RaBitQ rung's first stage (4k candidates) refined to k: the
@@ -489,6 +516,131 @@ def phase_small_parity_packed(dev, g) -> None:
                            "differs from the same call before it")
 
 
+def binned_case(g, dev, arm, C, cap, rot, p=0, pl=0):
+    """Random rows of one storage kind (packed_case's, or dense f32 /
+    bf16 rows) with duplicate rows: in every list, position q's row, norm,
+    row scale and keep copied to q + 128 and q + 256 (one bin) and to
+    q + 1 (the next bin). Returns (storage, keyword arguments, width,
+    norms, keep)."""
+    if arm in ("f32", "bf16"):
+        storage = torch.randn(C, cap, rot, generator=g, device=dev).to(
+            F32 if arm == "f32" else BF16)
+        kw, width = {}, rot
+    else:
+        storage, kw, width = packed_case(g, dev, arm, C, cap, rot, p, pl)
+    xn = torch.rand(C, cap, generator=g, device=dev) * 100 + 10
+    keep = (torch.rand(C, cap, generator=g, device=dev) < 0.8).int()
+    rs = kw.get("row_scale")
+    for src, dst in ((3, 131), (3, 259), (40, 41), (7, 135), (100, 101)):
+        if dst >= cap:
+            continue
+        if arm in ("f32", "bf16", "i8"):
+            storage[:, dst] = storage[:, src]
+        else:
+            storage[:, :, dst] = storage[:, :, src]
+        for side in (xn, keep, rs):
+            if side is not None:
+                side[:, dst] = side[:, src]
+    if arm in ("f32", "bf16"):
+        xn = (storage.float() ** 2).sum(2)
+    return storage, kw, width, xn, keep
+
+
+def phase_small_parity_binned(dev) -> None:
+    """Kernel 2's binned arms against their plain versions on every
+    storage kind (f32, bf16, int8 rows with residual queries and per-list
+    scales, i4, sign bits with the row scale, pq4), caps 256 and 384, k 1
+    to 64 (binned) and 14 to 256 (binned_deep), L2 and inner product,
+    bf16 and f32 operands, a keep filter, empty slots, an empty list and
+    one shorter than k, and duplicate rows (equal distances in one bin and
+    in neighbouring ones). Each case runs the exact arm too: where the
+    exact arm equals its plain version bit for bit, so must the binned
+    arm; elsewhere the module's tolerance holds. At cap 128 the arms are
+    not eligible: the wrapper refuses them and "auto" routes exact."""
+    from raft_tpu_torch.neighbors.common import scan_route
+    from raft_tpu_torch.ops import ivf_scan
+
+    log("parity (small, ragged): ivf_list_scan_topk binned arms")
+    g = torch.Generator(device=dev).manual_seed(11)
+    C, nb, G, m = 12, 30, 256, 400
+    L2, IP = ivf_scan.L2, ivf_scan.IP
+    bit_exact = {}
+    for arm, cap, rot, p, pl, k, mk, filt, cd, ex in [
+            ("f32", 256, 24, 0, 0, 1, L2, True, "f32", "binned"),
+            ("f32", 384, 40, 0, 0, 10, IP, False, "f32", "binned"),
+            ("f32", 256, 32, 0, 0, 64, L2, False, "bf16", "binned"),
+            ("f32", 384, 128, 0, 0, 256, L2, False, "f32", "binned_deep"),
+            ("bf16", 384, 96, 0, 0, 13, L2, True, "bf16", "binned"),
+            ("bf16", 256, 64, 0, 0, 30, IP, True, "bf16", "binned_deep"),
+            ("i8", 256, 40, 0, 0, 10, L2, True, "bf16", "binned"),
+            ("i8", 384, 96, 0, 0, 64, L2, False, "bf16", "binned_deep"),
+            ("i4", 384, 96, 0, 0, 10, L2, True, "bf16", "binned"),
+            ("i4", 256, 40, 0, 0, 65, IP, False, "f32", "binned_deep"),
+            ("bits", 256, 100, 0, 0, 13, L2, True, "bf16", "binned"),
+            ("bits", 384, 96, 0, 0, 40, L2, False, "bf16", "binned_deep"),
+            ("pq4", 256, 24, 24, 1, 10, L2, True, "bf16", "binned"),
+            ("pq4", 384, 96, 96, 1, 30, L2, False, "bf16", "binned_deep"),
+            ("pq4", 256, 96, 48, 2, 14, IP, True, "f32", "binned_deep"),
+            ("pq4", 256, 96, 96, 1, 256, L2, False, "f32", "binned_deep")]:
+        storage, kw, width, xn, keep = binned_case(g, dev, arm, C, cap, rot,
+                                                   p, pl)
+        ids = torch.arange(C * cap, dtype=torch.int32,
+                           device=dev).reshape(C, cap) * 7 + 3
+        sizes = torch.randint(0, cap + 1, (C,), generator=g, device=dev,
+                              dtype=torch.int32)
+        sizes[0], sizes[1], sizes[2] = 0, 5, cap
+        bl = torch.randint(0, C, (nb,), generator=g, device=dev,
+                           dtype=torch.int32)
+        bl[:3] = torch.tensor([0, 1, 2], device=dev)
+        bq = torch.randint(-1, m, (nb, G), generator=g, device=dev,
+                           dtype=torch.int32)
+        pad = width - rot
+        q = torch.nn.functional.pad(
+            torch.randn(m, rot, generator=g, device=dev) * 3, (0, pad))
+        kw.update(k=k, metric_kind=mk, compute_dtype=cd)
+        qa = None
+        if mk == L2:
+            if arm in ("f32", "bf16"):
+                qa = (q * q).sum(1)
+            else:
+                kw["centers"] = torch.nn.functional.pad(
+                    torch.randn(C, rot, generator=g, device=dev), (0, pad))
+        args = (storage, ids, sizes, bl, bq, q, qa,
+                xn if mk == L2 else None, keep if filt else None)
+        name = (f"ivf_list_scan_topk {ex} {arm} cap={cap} rot={rot}"
+                + (f" p={p}" if arm == "pq4" else "")
+                + f" k={k} metric={mk} keep={filt} {cd}")
+        ed, ei = ivf_scan.ivf_list_scan_topk(*args, **kw)
+        epd, epi = ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
+        exact_bits = torch.equal(ed, epd) and torch.equal(ei, epi)
+        kd, ki = ivf_scan.ivf_list_scan_topk(*args, extract=ex, **kw)
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(*args, extract=ex, **kw)
+        compare(name, kd, ki, pd, pi)
+        same = torch.equal(kd, pd) and torch.equal(ki, pi)
+        bit_exact.setdefault(arm, []).append(same)
+        if exact_bits and not same:
+            raise SmokeFailure(f"{name}: the exact arm is bit for bit its "
+                               "plain version's, the binned arm is not")
+    log("  bit for bit per storage kind (binned arm vs plain version): "
+        + ", ".join(f"{arm} {sum(v)}/{len(v)}" for arm, v in
+                    bit_exact.items()))
+    storage, kw, _, xn, _ = binned_case(g, dev, "f32", C, 128, 24)
+    args = (storage, ids[:, :128].contiguous(), sizes.clamp_max(128), bl,
+            bq, torch.randn(m, 24, generator=g, device=dev), None, None)
+    for ex in ("binned", "binned_deep"):
+        try:
+            ivf_scan.ivf_list_scan_topk(*args, k=10, metric_kind=IP,
+                                        extract=ex)
+        except ValueError:
+            pass
+        else:
+            raise SmokeFailure(f"ivf_list_scan_topk {ex} at cap 128 was "
+                               "not refused")
+    if scan_route("auto", 10, 128, 0.95, dev) != ("kernel", "exact"):
+        raise SmokeFailure("scan_route at cap 128 did not pick exact")
+    log("  cap 128: both arms refused, 'auto' routes the exact kernel")
+
+
 def compare_exact(name, outs_k, outs_p) -> None:
     """Kernel outputs against the plain version's: every tensor equal."""
     diff = [i for i, (a, b) in enumerate(zip(outs_k, outs_p))
@@ -597,23 +749,28 @@ def phase_small_parity_graph(dev) -> None:
 
 def phase_small_search(dev) -> None:
     """The whole search on a small index: the card's kernel path against
-    the same index searched on the CPU (plain versions)."""
+    the same index searched on the CPU (plain versions), with the exact
+    arm (``local_recall_target=1.0``) and with the binned arm that
+    "pallas" takes at the default target on both sides."""
     from raft_tpu_torch.neighbors import ivf_flat
 
     x = sift_like(20_000, 128, seed=3, device=dev)
     q = sift_like(300, 128, seed=4, device=dev)
     ix = ivf_flat.build(ivf_flat.IndexParams(n_lists=64, kmeans_n_iters=10),
                         x, device=dev)
-    sp = ivf_flat.SearchParams(n_probes=8)
-    kd, ki = ivf_flat.search(sp, ix, q, 10)
     cpu_ix = dataclasses.replace(
         ix, **{f: getattr(ix, f).cpu() for f in
                ("centers", "storage", "indices", "list_sizes",
                 "data_norms")})
-    pd, pi = ivf_flat.search(sp, cpu_ix, q.cpu(), 10)
     log("parity (small IVF-Flat search, card vs CPU):")
-    compare("ivf_flat.search 20k x 128, 64 lists", kd.cpu(), ki.cpu(), pd,
-            pi)
+    for what, sp in (("exact", ivf_flat.SearchParams(
+            n_probes=8, local_recall_target=1.0)),
+                     ("binned", ivf_flat.SearchParams(
+                         n_probes=8, scan_impl="pallas"))):
+        kd, ki = ivf_flat.search(sp, ix, q, 10)
+        pd, pi = ivf_flat.search(sp, cpu_ix, q.cpu(), 10)
+        compare(f"ivf_flat.search 20k x 128, 64 lists, {what} arm",
+                kd.cpu(), ki.cpu(), pd, pi)
 
 
 def phase_small_cagra(dev) -> None:
@@ -651,7 +808,8 @@ def recall_of(found, truth) -> float:
 def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
               n_probes=64, k=10) -> dict:
     """Build + search + recall, with the kernel inputs captured for the
-    per-kernel measurements that follow."""
+    per-kernel measurements that follow. The search runs the exact arm
+    (``local_recall_target=1.0``); ``default_search`` runs the default."""
     from raft_tpu_torch.neighbors import brute_force, ivf_flat
     from raft_tpu_torch.ops import fused_topk, ivf_scan
 
@@ -684,7 +842,8 @@ def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
                                device=dev)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        sp = ivf_flat.SearchParams(n_probes=n_probes)
+        sp = ivf_flat.SearchParams(n_probes=n_probes,
+                                   local_recall_target=1.0)
         out_d, out_i = ivf_flat.search(sp, index, q, k)
         _, truth = brute_force.knn(q[:1000], x, k, device=dev)
         torch.cuda.synchronize()
@@ -726,7 +885,7 @@ def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
         f"{[round(t * 1e3, 3) for t in times]}")
     profile_search(lambda: ivf_flat.search(sp, index, q, k))
     return {"captured": captured, "launches": launches, "build_s": build_s,
-            "x": x, "q": q, "truth": truth,
+            "x": x, "q": q, "truth": truth, "index": index,
             "recall": rec, "qps": nq / med}
 
 
@@ -793,13 +952,15 @@ def stage_split(name: str, kern, full_ms: float) -> None:
         f"builds {ms[0]:.3f} and {ms[1]:.3f} ms)")
 
 
-# the TPU kernel's arm each kernel-2 storage arm replaces
+# the TPU kernel's arm each kernel-2 storage or extraction arm replaces
 _ARM_SITE = {"": "raft_tpu/ops/ivf_scan.py:198",
              "int8": "raft_tpu/ops/ivf_scan.py:302",
              "i4": "raft_tpu/ops/ivf_scan.py:281",
              "raw": "raft_tpu/ops/ivf_scan.py:281",
              "pq4": "raft_tpu/ops/ivf_scan.py:221",
-             "rabitq": "raft_tpu/ops/ivf_scan.py:256"}
+             "rabitq": "raft_tpu/ops/ivf_scan.py:256",
+             "binned": "raft_tpu/ops/ivf_scan.py:89",
+             "binned_deep": "raft_tpu/ops/ivf_scan.py:123"}
 
 
 def scan_work(args, kw):
@@ -848,11 +1009,15 @@ def scan_work(args, kw):
     return bytes_, 2.0 * d * pairs, peak, f"{cd} operands"
 
 
-def measure_ivf(args, kw, launches, arm: str = "") -> dict:
+def measure_ivf(args, kw, launches, arm: str = "",
+                plain_reps: int = 2) -> dict:
     """Kernel 2 at a path's captured inputs: agreement with the plain
     version, time, stage split (not for the pq4 arm, whose kernel has no
-    stage builds), plain time and bound. ``arm`` names the storage arm
-    in the report ("" for the float arm)."""
+    stage builds), plain time (``plain_reps`` calls after one warm-up)
+    and bound. ``arm`` names the storage or extraction arm in the report
+    ("" for the float arm's exact extraction); ``"bit_exact"`` says
+    whether kernel and plain version agreed bit for bit (not a key of the
+    JSON line)."""
     from raft_tpu_torch.ops import ivf_scan
 
     storage, bucket_q, queries = args[0], args[4], args[5]
@@ -862,7 +1027,8 @@ def measure_ivf(args, kw, launches, arm: str = "") -> dict:
         f"{tuple(storage.shape)} {storage.dtype}, buckets "
         f"{tuple(bucket_q.shape)}, queries {tuple(queries.shape)} "
         f"{queries.dtype}, k={k}, compute {kw.get('compute_dtype')}, "
-        f"residual {kw.get('centers') is not None}")
+        f"residual {kw.get('centers') is not None}, extract "
+        f"{kw.get('extract', 'exact')}")
     before = ivf_scan.ivf_list_scan_topk.launches
 
     def kern():
@@ -881,7 +1047,7 @@ def measure_ivf(args, kw, launches, arm: str = "") -> dict:
     ms = cuda_ms(kern, reps=10)
     if kw.get("pq_centers") is None:
         stage_split(name, kern, ms)
-    plain_ms = cuda_ms(plain, reps=2)
+    plain_ms = cuda_ms(plain, reps=plain_reps)
     ivf_scan.ivf_list_scan_topk.launches = before   # measurement launches
 
     bytes_, ops, peak, what = scan_work(args, kw)
@@ -898,7 +1064,91 @@ def measure_ivf(args, kw, launches, arm: str = "") -> dict:
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": None, "bit_exact": exact}
+
+
+def default_search(label: str, first, q, truth, k: int,
+                   exact_recall: float, refine=None,
+                   exact_refined: float = None, floor: float = None,
+                   refined_floor: float = None,
+                   raw_floor: float = None) -> dict:
+    """One search at the reference's default ``local_recall_target``
+    (0.95) on an index an earlier phase built and measured with the exact
+    arm: ``first()`` is the search (its first stage where ``refine(cand)``
+    re-ranks its candidates to k). Reports recall@k raw (the first k
+    columns) and refined, QPS as the median of 5 batches of the whole
+    search, launches of kernel 2 by arm during one search (counts set to
+    0 just before it, read just after), a profile, and the arm at the
+    search's shapes (``measure_ivf``; where it is not bit for bit its
+    plain version, the exact arm on the same inputs must not be either).
+    Gates, each listed in ``"failed"``: recall within
+    ``RECALL_LOSS_BUDGET`` of the exact run's on the same index and
+    queries (raw, and refined where refined), and ``floor`` /
+    ``refined_floor`` where given; ``raw_floor`` is printed, not held."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    captured = {}
+    orig, rec = record_scan(captured, lambda a, kw: "scan" not in captured)
+    try:
+        _, cand = first()
+        torch.cuda.synchronize()
+        launches = dict(rec.by_arm)
+    finally:
+        ivf_scan.ivf_list_scan_topk = orig
+    n = truth.shape[0]
+    raw = recall_of(cand[:n, :k], truth)
+
+    def run():
+        _, c = first()
+        return (None, c) if refine is None else refine(c)
+
+    med = statistics.median(timed_batches(run))
+    refined = None
+    if refine is not None:
+        refined = recall_of(run()[1][:n], truth)
+    arms = ", ".join(f"{a} {c}" for a, c in launches.items())
+    log(f"default search, {label}: {q.shape[0]} queries in "
+        f"{med * 1e3:.2f} ms (median of 5) -> {q.shape[0] / med:.1f} QPS; "
+        f"kernel 2 launches by arm: {arms}; recall@{k} {raw:.4f} (exact arm "
+        f"{exact_recall:.4f})"
+        + (f", refined {refined:.4f} (exact arm {exact_refined:.4f})"
+           if refine is not None else "")
+        + (f"; absolute floor {raw_floor} "
+           f"{'met' if raw >= raw_floor else 'not met'} (printed, not held)"
+           if raw_floor is not None else ""))
+    profile_search(run)
+    a, kw = captured["scan"]
+    arm = kw.get("extract", "exact")
+    if launches.get(arm, 0) <= 0:
+        raise SmokeFailure(f"{label}: kernel 2's {arm} arm never launched")
+    kern = measure_ivf(a, kw, launches[arm], arm=f"{arm} {label}",
+                       plain_reps=1)
+    failed = []
+    if not kern["bit_exact"]:
+        ekw = dict(kw, extract="exact")
+        ed, ei = ivf_scan.ivf_list_scan_topk(*a, **ekw)
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(*a, **ekw)
+        ivf_scan.ivf_list_scan_topk.launches -= 1   # a measurement launch
+        if torch.equal(ed, pd) and torch.equal(ei, pi):
+            failed.append(f"{label}: the exact arm is bit for bit its plain "
+                          f"version's on these inputs, the {arm} arm is not")
+        del ed, ei, pd, pi
+    if raw < exact_recall - RECALL_LOSS_BUDGET:
+        failed.append(f"{label}: recall {raw:.4f} < exact {exact_recall:.4f}"
+                      f" - {RECALL_LOSS_BUDGET}")
+    if floor is not None and raw < floor:
+        failed.append(f"{label}: recall {raw:.4f} < {floor}")
+    if refine is not None:
+        if refined < exact_refined - RECALL_LOSS_BUDGET:
+            failed.append(f"{label}: refined recall {refined:.4f} < exact "
+                          f"{exact_refined:.4f} - {RECALL_LOSS_BUDGET}")
+        if refined_floor is not None and refined < refined_floor:
+            failed.append(f"{label}: refined recall {refined:.4f} < "
+                          f"{refined_floor}")
+    return {"label": label, "arm": arm, "kernel": kern, "recall": raw,
+            "exact_recall": exact_recall, "refined_recall": refined,
+            "exact_refined": exact_refined, "qps": q.shape[0] / med,
+            "launches": launches, "failed": failed}
 
 
 def measure_knn(args, kw, launches) -> dict:
@@ -1055,16 +1305,7 @@ def cagra_path(dev, x, q, truth, k=10) -> dict:
     # the nn-descent graph's own recall against the exact neighbours of
     # 1,000 sampled nodes, and the same build at the reference's default
     # of 20 iterations (reported, not gated)
-    from raft_tpu_torch.neighbors import brute_force
-
-    sample = torch.arange(0, x.shape[0], x.shape[0] // 1000, device=dev)
-    _, exact = brute_force.knn(x[sample], x, 65, device=dev)
-
-    def graph_recall(g):
-        g = g[sample].long()
-        return recall_of(g, exact[:, 1:g.shape[1] + 1])
-
-    g_rec = graph_recall(captured.pop("nn-descent").graph)
+    g_rec = graph_recall(x, captured.pop("nn-descent").graph)
     del captured["optimize"], captured["pack"]
     # cagra.build at nn_descent_niter=20, its parts called one by one
     t0 = time.perf_counter()
@@ -1079,7 +1320,7 @@ def cagra_path(dev, x, q, truth, k=10) -> dict:
     _, i20 = cagra.search(sp, ix20, q[:truth.shape[0]], k)
     log(f"  nn-descent graph recall@64 on 1000 sampled nodes: {g_rec:.4f}; "
         f"at 20 iterations (the reference's default, not gated): graph "
-        f"recall@64 {graph_recall(nd20.graph):.4f}, build {b20:.2f} s, "
+        f"recall@64 {graph_recall(x, nd20.graph):.4f}, build {b20:.2f} s, "
         f"search recall@{k} {recall_of(i20, truth):.4f}")
     del ix20, nd20
     return {"captured": captured, "launches": launches, "build_s": build_s,
@@ -1208,9 +1449,10 @@ def measure_beam(args, kw, launches) -> dict:
 def phase_small_ivf_pq(dev) -> None:
     """IVF-PQ built on the card through the user's entry point and
     searched there (kernel 2's int8 arm) and, over the same index, on the
-    CPU (its plain version): L2 and inner product. Both paths compute the
-    same residual queries; the kernel and the plain version sum the f32
-    products in other orders, so the tolerance is the module's."""
+    CPU (its plain version): L2 and inner product, the exact arm and the
+    binned one. Both paths compute the same residual queries; the kernel
+    and the plain version sum the f32 products in other orders, so the
+    tolerance is the module's."""
     from raft_tpu_torch.distance.types import DistanceType
     from raft_tpu_torch.neighbors import ivf_pq
     from raft_tpu_torch.ops import ivf_scan
@@ -1224,14 +1466,18 @@ def phase_small_ivf_pq(dev) -> None:
             device=dev)
         if ix.cache_kind != "i8":
             raise SmokeFailure(f"small IVF-PQ: cache {ix.cache_kind}, not i8")
-        sp = ivf_pq.SearchParams(n_probes=8)
-        before = ivf_scan.ivf_list_scan_topk.launches
-        kd, ki = ivf_pq.search(sp, ix, q, 10)
-        if ivf_scan.ivf_list_scan_topk.launches != before + 1:
-            raise SmokeFailure("small IVF-PQ search did not launch kernel 2")
-        pd, pi = ivf_pq.search(sp, cpu_copy(ix), q.cpu(), 10)
-        compare(f"ivf_pq.search 20k x 96, 64 lists, {metric.name}",
-                kd.cpu(), ki.cpu(), pd, pi)
+        for what, sp in (("exact", ivf_pq.SearchParams(
+                n_probes=8, local_recall_target=1.0)),
+                         ("binned", ivf_pq.SearchParams(
+                             n_probes=8, scan_impl="pallas"))):
+            before = ivf_scan.ivf_list_scan_topk.launches
+            kd, ki = ivf_pq.search(sp, ix, q, 10)
+            if ivf_scan.ivf_list_scan_topk.launches != before + 1:
+                raise SmokeFailure("small IVF-PQ search did not launch "
+                                   "kernel 2")
+            pd, pi = ivf_pq.search(sp, cpu_copy(ix), q.cpu(), 10)
+            compare(f"ivf_pq.search 20k x 96, 64 lists, {metric.name}, "
+                    f"{what} arm", kd.cpu(), ki.cpu(), pd, pi)
 
 
 def cpu_copy(ix):
@@ -1245,7 +1491,8 @@ def phase_small_ivf_pq_rungs(dev) -> None:
     """Each compressed cache rung built on the card through the user's
     entry points (``build(cache_dtype=...)``, ``attach_rabitq_cache``,
     ``attach_raw_residual_cache``), searched there (kernel 2's arm) and,
-    over the same index, on the CPU (its plain version)."""
+    over the same index, on the CPU (its plain version), with the exact
+    and the binned extraction."""
     from raft_tpu_torch.neighbors import ivf_pq
     from raft_tpu_torch.ops import ivf_scan
 
@@ -1269,15 +1516,19 @@ def phase_small_ivf_pq_rungs(dev) -> None:
         if ix.cache_kind != kind.split()[-1]:
             raise SmokeFailure(f"small IVF-PQ {kind}: cache "
                                f"{ix.cache_kind}")
-        sp = ivf_pq.SearchParams(n_probes=8)
-        before = ivf_scan.ivf_list_scan_topk.launches
-        kd, ki = ivf_pq.search(sp, ix, q, 10)
-        if ivf_scan.ivf_list_scan_topk.launches != before + 1:
-            raise SmokeFailure(f"small IVF-PQ {kind} search did not launch "
-                               "kernel 2")
-        pd, pi = ivf_pq.search(sp, cpu_copy(ix), q.cpu(), 10)
-        compare(f"ivf_pq.search 20k x 96, 64 lists, {kind} cache",
-                kd.cpu(), ki.cpu(), pd, pi)
+        cpu_ix = cpu_copy(ix)
+        for what, sp in (("exact", ivf_pq.SearchParams(
+                n_probes=8, local_recall_target=1.0)),
+                         ("binned", ivf_pq.SearchParams(
+                             n_probes=8, scan_impl="pallas"))):
+            before = ivf_scan.ivf_list_scan_topk.launches
+            kd, ki = ivf_pq.search(sp, ix, q, 10)
+            if ivf_scan.ivf_list_scan_topk.launches != before + 1:
+                raise SmokeFailure(f"small IVF-PQ {kind} search did not "
+                                   "launch kernel 2")
+            pd, pi = ivf_pq.search(sp, cpu_ix, q.cpu(), 10)
+            compare(f"ivf_pq.search 20k x 96, 64 lists, {kind} cache, "
+                    f"{what} arm", kd.cpu(), ki.cpu(), pd, pi)
 
 
 def timed_patches(secs: dict, patches):
@@ -1305,8 +1556,9 @@ def record_scan(captured: dict, pick):
     """Stand-in for kernel 2's wrapper that keeps the inputs of the call
     ``pick(args, kwargs)`` selects. The wrapper counts its launches on the
     module attribute it is called by, so while the stand-in is in place
-    the count lands on the stand-in, which starts at 0. Returns (the
-    original to restore, the stand-in)."""
+    the count lands on the stand-in, which starts at 0; ``by_arm`` splits
+    it by extraction arm. Returns (the original to restore, the
+    stand-in)."""
     from raft_tpu_torch.ops import ivf_scan
 
     orig = ivf_scan.ivf_list_scan_topk
@@ -1314,9 +1566,14 @@ def record_scan(captured: dict, pick):
     def rec(*a, **kw):
         if pick(a, kw):
             captured["scan"] = (a, kw)
-        return orig(*a, **kw)
+        before = rec.launches
+        out = orig(*a, **kw)
+        arm = kw.get("extract", "exact")
+        rec.by_arm[arm] = rec.by_arm.get(arm, 0) + rec.launches - before
+        return out
 
     rec.launches = 0
+    rec.by_arm = {}
     ivf_scan.ivf_list_scan_topk = rec
     return orig, rec
 
@@ -1339,9 +1596,9 @@ def ivf_pq_path(dev, n=10_000_000, d=96, nq=10_000, n_lists=1024,
                 pq_dim=48, n_probes=128, k=10, batch_size=2_000_000) -> dict:
     """IVF-PQ at the JAX package's DEEP-10M configuration (bench.py:283-343)
     on SIFT-like rows made on the card: the streamed build with its
-    default int8 cache, split into its parts; search (recall, QPS, the
-    kernel's launches, a profile); the refined search (3k candidates,
-    exact refine to k)."""
+    default int8 cache, split into its parts; search with the exact arm
+    (``local_recall_target=1.0``; recall, QPS, the kernel's launches, a
+    profile); the refined search (3k candidates, exact refine to k)."""
     from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
     from raft_tpu_torch.ops import ivf_scan
 
@@ -1356,7 +1613,7 @@ def ivf_pq_path(dev, n=10_000_000, d=96, nq=10_000, n_lists=1024,
     params = ivf_pq.IndexParams(n_lists=n_lists, pq_dim=pq_dim, pq_bits=8,
                                 kmeans_trainset_fraction=0.1,
                                 cache_dtype="auto")
-    sp = ivf_pq.SearchParams(n_probes=n_probes)
+    sp = ivf_pq.SearchParams(n_probes=n_probes, local_recall_target=1.0)
     orig, rec = record_scan(captured, lambda a, kw: True)
     try:
         t0 = time.perf_counter()
@@ -1421,10 +1678,24 @@ def ivf_pq_path(dev, n=10_000_000, d=96, nq=10_000, n_lists=1024,
     if rrec < REFINED_RECALL_FLOOR:
         raise SmokeFailure(f"refined IVF-PQ recall {rrec:.4f} < "
                            f"{REFINED_RECALL_FLOOR}")
+
+    # the default searches on the same index: binned at k, binned_deep at
+    # the refined search's 3k
+    dsp = ivf_pq.SearchParams(n_probes=n_probes)
+    defaults = [
+        default_search("int8 (IVF-PQ, DEEP-10M)",
+                       lambda: ivf_pq.search(dsp, index, q, k), q, truth, k,
+                       rec, raw_floor=IVF_PQ_RECALL_FLOOR),
+        default_search("int8 (IVF-PQ refined first stage)",
+                       lambda: ivf_pq.search(dsp, index, q, 3 * k), q, truth,
+                       k, rec, refine=lambda c: refine.refine(
+                           x, q, c, k, device=dev), exact_refined=rrec,
+                       refined_floor=REFINED_RECALL_FLOOR)]
     return {"captured": captured["scan"], "launches": launches,
             "build_s": build_s, "secs": secs, "recall": rec,
             "qps": nq / med, "refined_recall": rrec, "refined_qps": nq / rmed,
-            "x": x, "q": q, "truth": truth, "index": index}
+            "x": x, "q": q, "truth": truth, "index": index,
+            "defaults": defaults}
 
 
 def ivf_pq_rungs_path(dev, x, q, truth, base, k=10, n_probes=128,
@@ -1435,16 +1706,19 @@ def ivf_pq_rungs_path(dev, x, q, truth, base, k=10, n_probes=128,
     (b) ``attach_raw_residual_cache(dtype="i4")`` on the default index;
     (c) ``pq_dim=96, pq_bits=4, cache_dtype="pq4"`` (EQUAL_BYTES_r05.json's
     pq4 index); (d) ``attach_rabitq_cache`` on the default index, searched
-    at 4k = 40 (bench.py:428-450). For each: build or attach seconds by
-    part and cache GB, recall@k raw and refined (3k candidates; RaBitQ
-    each width of ``RABITQ_REFINE_RATIOS``; exact refine), QPS (median of
-    5), kernel launches per search and a profile; the arm measured at the
-    path's shapes. A rung under its recall gate is listed in ``"failed"``
-    (the run fails after its report, so every other phase still runs)."""
+    at 4k = 40 (bench.py:428-450). For each, with the exact arm
+    (``local_recall_target=1.0``): build or attach seconds by part and
+    cache GB, recall@k raw and refined (3k candidates; RaBitQ each width
+    of ``RABITQ_REFINE_RATIOS``; exact refine), QPS (median of 5), kernel
+    launches per search and a profile; the arm measured at the path's
+    shapes; then ``default_search`` on the same index. A rung under its
+    recall gate is listed in ``"failed"`` (the run fails after its report,
+    so every other phase still runs)."""
     from raft_tpu_torch.neighbors import ivf_pq, refine
     from raft_tpu_torch.ops import ivf_scan
 
-    sp = ivf_pq.SearchParams(n_probes=n_probes)
+    sp = ivf_pq.SearchParams(n_probes=n_probes, local_recall_target=1.0)
+    dsp = ivf_pq.SearchParams(n_probes=n_probes)       # the default target
     n_lists = base.n_lists
     # the rungs share the default index's codes; its int8 cache goes
     base = dataclasses.replace(base, recon_cache=None)
@@ -1551,11 +1825,27 @@ def ivf_pq_rungs_path(dev, x, q, truth, base, k=10, n_probes=128,
                 f"{REFINED_RECALL_FLOOR})")
         a, kw = captured["scan"]
         kern = measure_ivf(a, kw, launches, arm=name)
+        del a, kw
+        # the default search on the same index: binned at k = 10, RaBitQ's
+        # first stage of 40 binned_deep, refined to k (at 80 "auto" keeps
+        # the exact arm, measured above)
+        if kind == "rabitq":
+            dflt = default_search(
+                f"{name} (DEEP-10M rung)", lambda: ivf_pq.search(
+                    dsp, index, q, kc), q, truth, k, raw,
+                refine=lambda c: refine.refine(x, q, c, k, device=dev),
+                exact_refined=refined_by[RABITQ_REFINE_RATIOS[0]][0])
+        else:
+            dflt = default_search(
+                f"{name} (DEEP-10M rung)", lambda: ivf_pq.search(
+                    dsp, index, q, k), q, truth, k, raw,
+                raw_floor=IVF_PQ_RECALL_FLOOR)
         out[name] = {"kernel": kern, "make_s": make_s, "secs": secs,
                      "cache_gb": cache_gb, "recall": raw, "qps": q.shape[0]
                      / med, "refined_recall": rrec, "refined_qps": rqps,
-                     "refined_by": refined_by, "matched": matched}
-        del index, captured, a, kw, out_d, out_i
+                     "refined_by": refined_by, "matched": matched,
+                     "default": dflt}
+        del index, captured, out_d, out_i
         torch.cuda.empty_cache()
     return out
 
@@ -1569,10 +1859,19 @@ def cagra_ivf_pq_path(dev, x, q, truth, k=10) -> dict:
     from raft_tpu_torch.ops import beam_step, ivf_scan
 
     secs, captured = {}, {}
+    knn = {}
+    build_knn_graph = cagra.build_knn_graph
+
+    def keep_graph(*a, **kw):
+        knn["graph"] = build_knn_graph(*a, **kw)
+        return knn["graph"]
+
     saved = timed_patches(secs, [
         (ivf_pq, "build", "ivf_pq_build"), (ivf_pq, "search", "self_search"),
         (refine, "refine", "refine"), (cagra, "optimize", "optimize"),
         (cagra, "_attach_inline", "pack")])
+    saved.append((cagra, "build_knn_graph", build_knn_graph))
+    cagra.build_knn_graph = keep_graph
     beam = beam_step.beam_merge_step
     params = cagra.IndexParams(intermediate_graph_degree=64, graph_degree=32)
     sp = cagra.SearchParams(n_seeds=64, max_iterations=15)
@@ -1585,6 +1884,7 @@ def cagra_ivf_pq_path(dev, x, q, truth, k=10) -> dict:
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         scan_build, beam_build = rec.launches, beam.launches
+        by_arm = dict(rec.by_arm)
     finally:
         ivf_scan.ivf_list_scan_topk = orig
         for mod, attr, fn in saved:
@@ -1600,13 +1900,19 @@ def cagra_ivf_pq_path(dev, x, q, truth, k=10) -> dict:
         f"{secs['self_search']:.2f} + refine {secs['refine']:.2f} + "
         f"optimize {secs['optimize']:.2f} + pack {secs['pack']:.2f} (the "
         f"rest: self-edge drop)")
-    log(f"  launches: ivf_list_scan_topk {scan_build} per build, "
-        f"beam_merge_step {launches['beam_merge_step'] - beam_build} per "
-        f"search of {q.shape[0]} queries")
+    log(f"  launches: ivf_list_scan_topk {scan_build} per build ("
+        + ", ".join(f"{a} {c}" for a, c in by_arm.items())
+        + f"), beam_merge_step {launches['beam_merge_step'] - beam_build} "
+        f"per search of {q.shape[0]} queries")
     for name, cnt in launches.items():
         if cnt <= 0:
             raise SmokeFailure(f"{name} never launched on the CAGRA IVF-PQ "
                                "path")
+    graph = knn.pop("graph")
+    g_rec = graph_recall(x, graph)
+    log(f"  the self-search graph's recall@{graph.shape[1]} on 1000 sampled "
+        f"nodes: {g_rec:.4f}")
+    del graph
     if out_d.shape != (q.shape[0], k) or \
             not bool(torch.isfinite(out_d).all()) or bool((out_i < 0).any()):
         raise SmokeFailure("CAGRA (IVF-PQ build) search returned non-finite "
@@ -1625,7 +1931,31 @@ def cagra_ivf_pq_path(dev, x, q, truth, k=10) -> dict:
     profile_search(lambda: cagra.search(sp, index, q, k))
     return {"captured": captured["scan"], "launches": launches,
             "build_s": build_s, "secs": secs, "recall": rec,
-            "qps": q.shape[0] / med}
+            "qps": q.shape[0] / med, "by_arm": by_arm, "graph_recall": g_rec}
+
+
+def graph_recall(x, graph, n_sample: int = 1000) -> float:
+    """A KNN graph's recall against the exact neighbours (self excluded) of
+    ``n_sample`` evenly spaced nodes."""
+    from raft_tpu_torch.neighbors import brute_force
+
+    sample = torch.arange(0, x.shape[0], x.shape[0] // n_sample,
+                          device=x.device)[:n_sample]
+    width = graph.shape[1]
+    _, exact = brute_force.knn(x[sample], x, width + 1, device=x.device)
+    return recall_of(graph[sample].long(), exact[:, 1:width + 1])
+
+
+def default_flat(index, q, truth, exact_recall, n_probes=64, k=10) -> dict:
+    """The IVF-Flat main path's default search (the binned arm at k = 10)
+    on its index, queries and truth (``default_search``), held to 0.90
+    too."""
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    sp = ivf_flat.SearchParams(n_probes=n_probes)
+    return default_search("IVF-Flat (SIFT-1M)",
+                          lambda: ivf_flat.search(sp, index, q, k), q, truth,
+                          k, exact_recall, floor=RECALL_FLOOR)
 
 
 def main() -> int:
@@ -1645,6 +1975,7 @@ def main() -> int:
         smi = phase_device()
         phase_build()
         phase_small_parity(dev)
+        phase_small_parity_binned(dev)
         phase_small_parity_graph(dev)
         phase_small_search(dev)
         phase_small_ivf_pq(dev)
@@ -1652,6 +1983,7 @@ def main() -> int:
         phase_small_cagra(dev)
         res = main_path(dev)
         x, q, truth = res.pop("x"), res.pop("q"), res.pop("truth")
+        fres = default_flat(res.pop("index"), q, truth, res["recall"])
         cres = cagra_path(dev, x, q, truth)
         pres = cagra_ivf_pq_path(dev, x, q, truth)
         del x, q, truth
@@ -1669,13 +2001,24 @@ def main() -> int:
                                 cres["launches"]["graph_local_join"]),
                    measure_beam(*ccap["beam"],
                                 cres["launches"]["beam_merge_step"])]
-        # the int8 arm at the CAGRA self-search's shapes (reported only)
-        measure_ivf(*pres["captured"],
-                    pres["launches"]["ivf_list_scan_topk"],
-                    arm="int8 (CAGRA self-search)")
+        # the int8 arm at the CAGRA self-search's shapes, with the arm the
+        # default search takes there (reported only)
+        arm = pres["captured"][1].get("extract", "exact")
+        measure_ivf(*pres["captured"], pres["by_arm"].get(arm, 0),
+                    arm=f"{arm} int8 (CAGRA self-search)")
         # one row per packed arm, from its DEEP-10M rung (the raw i4
         # cache's run of the i4 arm is reported above it, not listed)
         kernels += [rres[name]["kernel"] for name in ("i4", "pq4", "rabitq")]
+        # one row per binned arm: binned from the IVF-Flat main path's
+        # default search, binned_deep from the refined IVF-PQ search's
+        # first stage; the other default runs are reported above
+        for arm, run in (("binned", fres), ("binned_deep",
+                                            dres["defaults"][1])):
+            if run["arm"] != arm:
+                raise SmokeFailure(f"{run['label']}: took {run['arm']}, not "
+                                   f"{arm}")
+            kernels.append(dict(run["kernel"],
+                                name=f"ivf_list_scan_topk:{arm}"))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1690,6 +2033,20 @@ def main() -> int:
         f"{dres['refined_qps']:.1f}, recall@10 {dres['refined_recall']:.4f}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     failed = rres.pop("failed")
+    defaults = [fres] + dres["defaults"] + [r["default"] for r in
+                                             rres.values()]
+    for d in defaults:
+        failed += d["failed"]
+        k = d["kernel"]
+        log(f"default search, {d['label']}: {d['arm']}, QPS {d['qps']:.1f}, "
+            f"recall@10 {d['recall']:.4f} (exact {d['exact_recall']:.4f})"
+            + (f", refined {d['refined_recall']:.4f} (exact "
+               f"{d['exact_refined']:.4f})" if d["refined_recall"] is not None
+               else "")
+            + f"; arm {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, bound "
+            f"{k['bound_ms']:.3f} ms")
+    log(f"CAGRA (IVF-PQ build) self-search graph recall@63: "
+        f"{pres['graph_recall']:.4f}, launches by arm {pres['by_arm']}")
     for name, r in rres.items():
         log(f"IVF-PQ rung {name} (DEEP-10M config): cache {r['cache_gb']:.3f}"
             f" GB, made in {r['make_s']:.3f} s, QPS {r['qps']:.1f}, recall@10"
@@ -1702,7 +2059,8 @@ def main() -> int:
             + (f"; gate met from {r['matched'] * 10} candidates"
                if r["matched"] else ""))
     log(smi)
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": [{key: v for key, v in row.items()
+                                 if key != "bit_exact"} for row in kernels]}))
     if failed:
         print("chip_smoke: FAILED: " + "; ".join(failed), file=sys.stderr)
         return 1

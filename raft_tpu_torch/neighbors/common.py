@@ -4,11 +4,12 @@ Counterpart of ``raft_tpu/neighbors/common.py`` (``as_filter`` :82,
 ``filter_keep`` :90, ``resolve_filter_bits`` :109, ``sentinel_for`` :160,
 ``merge_topk`` :165), plus :func:`blocked_topk`, the running block merge
 that the plain exact searches share. The reference's approximate merge
-(``lax.approx_min_k``) is a TPU partial-reduce op with no counterpart
-here; every merge is exact — as the reference's is off the TPU, where
-``approx_min_k`` returns the exact top-k. :func:`backend_route` maps the
-reference's backend names (``scan_impl``, ``join_impl``) onto the port's
-two routes, for every module that takes them.
+(``lax.approx_min_k``, ``merge_recall_target < 1``) is a TPU
+partial-reduce op with no counterpart here; every merge is exact — as the
+reference's is off the TPU, where ``approx_min_k`` returns the exact
+top-k. :func:`backend_route` maps the reference's backend names
+(``join_impl``) onto the port's two routes; :func:`scan_route` does so for
+the IVF list scans, with their extraction arm.
 """
 
 from __future__ import annotations
@@ -113,37 +114,66 @@ def backend_name(requested: str, what: str = "scan_impl") -> str:
     return name
 
 
-def backend_route(requested: str, what: str = "scan_impl", kl: int = 0,
-                  k_max: Optional[int] = None) -> str:
+def backend_route(requested: str, what: str = "join_impl") -> str:
     """The route a reference backend name takes here: ``"kernel"`` for
     ``"auto"`` and ``"pallas"`` (the CUDA kernel's wrapper, which runs its
     plain version on CPU tensors), ``"plain"`` for ``"xla"`` and
-    ``"pallas_interpret"`` (the plain PyTorch version on any device). A
-    scan kernel keeps at most ``k_max`` candidates per list: past it
-    (``kl`` = min(k, cap) > ``k_max``) ``"auto"`` takes the exact plain
-    scan, as the reference's ``_resolve_scan_impl`` does, and ``"pallas"``
-    raises."""
+    ``"pallas_interpret"`` (the plain PyTorch version on any device). The
+    list scans take :func:`scan_route` instead."""
     name = backend_name(requested, what)
-    if name in ("xla", "pallas_interpret"):
-        return "plain"
-    if k_max is not None and kl > k_max:
-        if name == "pallas":
+    return "plain" if name in ("xla", "pallas_interpret") else "kernel"
+
+
+def scan_route(requested: str, kl: int, cap: int,
+               local_recall_target: float, device) -> Tuple[str, str]:
+    """(route, extraction arm) of an IVF list scan, as the reference routes
+    ``scan_impl`` (``ivf_flat._resolve_scan_impl``, ``ivf_scan.py:421-441``)
+    for ``kl`` = min(k, cap) candidates a list of capacity ``cap`` on an
+    index on ``device``. The route is ``"kernel"`` (the CUDA kernel) or
+    ``"plain"`` (its plain version); the arm is the reference's analytic
+    pick below a ``local_recall_target`` of 1 (``ops.ivf_scan.pick_extract``),
+    else "exact":
+
+    * "xla": plain, exact;
+    * "pallas_interpret": plain, the pick (the reference's interpreted
+      kernel takes it too);
+    * "pallas[:tile]": the kernel with the pick on a CUDA index, plain with
+      the pick on the CPU; past the kernel's ``K_MAX`` (256) it raises;
+    * "auto": on a CUDA index the kernel, with the pick where ``kl`` <= 64
+      and the cap is a multiple of 128 (where the reference's accelerator
+      takes its kernel), exact up to ``K_MAX``, and the exact plain scan
+      past it; on the CPU plain, exact (the reference's CPU route)."""
+    from raft_tpu_torch.ops.ivf_scan import K_MAX, pick_extract
+
+    name = backend_name(requested)
+    rt = float(local_recall_target)
+    arm = pick_extract(kl, cap, rt < 1.0, rt)
+    cuda = torch.device(device).type == "cuda"
+    if name == "xla":
+        return "plain", "exact"
+    if name == "pallas_interpret":
+        return "plain", arm
+    if name == "pallas":
+        if kl > K_MAX:
             raise ValueError(
-                f"{what}={requested!r} keeps at most {k_max} candidates per "
-                f"list, fewer than min(k, cap)={kl}; use {what}='auto' or "
-                "'xla' for the exact scan")
-        return "plain"
-    return "kernel"
+                f"scan_impl={requested!r} keeps at most {K_MAX} candidates "
+                f"per list, fewer than min(k, cap)={kl}; use scan_impl="
+                "'auto' or 'xla' for the exact scan")
+        return ("kernel" if cuda else "plain"), arm
+    if not cuda or kl > K_MAX:
+        return "plain", "exact"
+    if kl <= 64 and cap % 128 == 0:
+        return "kernel", arm
+    return "kernel", "exact"
 
 
 def approx_arm_not_ported(what: str):
-    """The error for a caller that forces an approximate extraction arm by
-    name: those arms are not ported yet."""
+    """The error for a caller that forces an approximate arm by name that
+    is not ported yet: the fold arms."""
     return NotImplementedError(
-        f"{what}: the approximate extraction arms (kernel 2's binned, "
-        "binned_deep and fold, kernel 1's fold) are not ported yet "
-        "(ROADMAP.md, Queue B item 2); the exact arm serves every other "
-        "request")
+        f"{what}: the fold extraction arms (kernel 1's and kernel 2's) are "
+        "not ported yet (ROADMAP.md, Queue B item 2); the exact arm serves "
+        "every other request")
 
 
 def sentinel_for(metric: DistanceType) -> float:

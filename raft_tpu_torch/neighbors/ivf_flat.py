@@ -14,17 +14,21 @@ padding). Search is the reference's five steps:
 4. ``unbucketize_merge``: candidates back to query order, exact merge;
 5. the IP negation, the sentinel and -1 mapping, the L2-sqrt root.
 
-Scan routes (``SearchParams.scan_impl``, the reference's names): "auto"
-and "pallas" run the kernel (its plain version on CPU tensors), "xla" and
-"pallas_interpret" the plain version. Each list keeps ``min(k, cap)``
-candidates, as the reference's does; beyond the kernel's 256 the scan
-takes the plain version, as the reference's ``_resolve_scan_impl`` sends
-``kl > 256`` to its exact XLA scan. ``local_recall_target`` and
-``merge_recall_target`` are accepted at any value and every selection is
-exact: off the TPU the reference's approximate selections
-(``lax.approx_min_k``) return the exact top-k too, and the approximate
-kernel arms are not ported (ROADMAP.md, Queue B item 2). The tracing spans
-have no counterpart.
+Scan routes (``SearchParams.scan_impl``, the reference's names, through
+``neighbors.common.scan_route``): each list keeps ``min(k, cap)``
+candidates, as the reference's does, and below a ``local_recall_target``
+of 1 the scan takes the reference's binned extraction arm where it is
+eligible (``ops.ivf_scan.pick_extract``: "binned" to k = 13 at the default
+0.95, else "binned_deep" to k = 256, on caps that are multiples of 128
+over 128). "xla" runs the plain version, exact; "pallas_interpret" the
+plain version with that arm; "pallas" the kernel with that arm (the plain
+version on the CPU), raising past the kernel's 256; "auto" on the card the
+kernel, with the arm where ``min(k, cap)`` <= 64 and the cap is
+128-aligned (the reference's accelerator route), exact up to 256 and the
+exact plain version beyond, and on the CPU the exact plain version (the
+reference's CPU route). ``merge_recall_target`` is accepted at any value
+and the merge is exact: off the TPU the reference's ``lax.approx_min_k``
+returns the exact top-k too. The tracing spans have no counterpart.
 """
 
 from __future__ import annotations
@@ -42,8 +46,8 @@ from raft_tpu_torch.core.serialize import read_index_file, write_index_file
 from raft_tpu_torch.distance.types import DistanceType, is_min_close, \
     resolve_metric
 from raft_tpu_torch.matrix.select_k import select_k
-from raft_tpu_torch.neighbors.common import as_filter, backend_route, \
-    filter_keep, merge_topk, resolve_filter_bits, sentinel_for
+from raft_tpu_torch.neighbors.common import as_filter, filter_keep, \
+    merge_topk, resolve_filter_bits, scan_route, sentinel_for
 from raft_tpu_torch.ops import ivf_scan
 from raft_tpu_torch.utils.math import cdiv, round_up_to_multiple
 from raft_tpu_torch.utils.precision import dist_dot
@@ -94,10 +98,11 @@ class SearchParams:
     padded to a multiple of it (kept for shape parity with the reference);
     ``compute_dtype``: "bf16" rounds both scan operands to bf16 (f32
     accumulation), "f32" scans f32 queries against the stored rows
-    unrounded (bf16 rows widen exactly). ``local_recall_target`` /
-    ``merge_recall_target``: accepted at any value; selection is exact (the
-    module docstring says why). ``scan_impl``: "auto" | "pallas" |
-    "pallas_interpret" | "xla" (module docstring)."""
+    unrounded (bf16 rows widen exactly). ``local_recall_target``: the
+    per-list recall budget that picks the scan's extraction arm;
+    ``merge_recall_target``: accepted at any value, the merge is exact.
+    ``scan_impl``: "auto" | "pallas" | "pallas_interpret" | "xla" (module
+    docstring)."""
 
     n_probes: int = 20
     query_group: int = 256
@@ -414,7 +419,7 @@ def _ivf_search(queries: torch.Tensor, centers: torch.Tensor,
                 filter_nbits: int, compute_dtype: str = "bf16",
                 data_norms: Optional[torch.Tensor] = None,
                 filter_bits: Optional[torch.Tensor] = None,
-                route: str = "kernel"):
+                route: str = "kernel", extract: str = "exact"):
     metric = DistanceType(metric_val)
     select_min = is_min_close(metric)
     C, cap, d = storage.shape
@@ -431,7 +436,7 @@ def _ivf_search(queries: torch.Tensor, centers: torch.Tensor,
 
     # scan: one (query group x list) step per bucket; per-list top-k cannot
     # exceed the capacity, the merge over n_probes lists restores k (the
-    # route is "plain" past the kernel's K_MAX, backend_route)
+    # route and the extraction arm are scan_route's)
     kl = min(k, cap)
     scan = (ivf_scan.ivf_list_scan_topk if route == "kernel"
             else ivf_scan.ivf_list_scan_topk_plain)
@@ -450,7 +455,8 @@ def _ivf_search(queries: torch.Tensor, centers: torch.Tensor,
         keep = filter_keep(filter_bits, filter_nbits, indices).to(torch.int32)
     out_d, cand_i = scan(
         storage, indices, list_sizes, bucket_list, bucket_q, q32, qaux, pn2,
-        keep, k=kl, metric_kind=mk, compute_dtype=compute_dtype)
+        keep, k=kl, metric_kind=mk, compute_dtype=compute_dtype,
+        extract=extract)
     cand_d = -out_d if metric == DistanceType.InnerProduct else out_d
     cand_d = torch.where(torch.isinf(out_d), sentinel, cand_d)
     out_d, out_i = unbucketize_merge(
@@ -477,8 +483,9 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
     if k > n_probes * cap:
         raise ValueError(
             f"k={k} exceeds n_probes*list_capacity={n_probes * cap}")
-    route = backend_route(search_params.scan_impl, kl=min(k, cap),
-                          k_max=ivf_scan.K_MAX)
+    route, extract = scan_route(
+        search_params.scan_impl, min(k, cap), cap,
+        search_params.local_recall_target, dev)
     if str(search_params.compute_dtype) not in _DTYPES:
         raise ValueError(f"compute_dtype must be f32|bf16, got "
                          f"{search_params.compute_dtype!r}")
@@ -492,7 +499,7 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
         int(search_params.bucket_batch),
         0 if bits is None else int(bits.n_bits),
         str(search_params.compute_dtype), index.data_norms,
-        None if bits is None else bits.bits.to(dev), route)
+        None if bits is None else bits.bits.to(dev), route, extract)
 
 
 # ---------------------------------------------------------------------------

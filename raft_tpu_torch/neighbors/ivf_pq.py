@@ -51,16 +51,18 @@ parameters, its index fields and its index files.
     ladder ("auto" / "i8" / "f32" / "bf16" / "f8"),
     ``internal_distance_dtype`` "bf16", prefilters and flat codes.
 
-  Routes (``SearchParams.scan_impl``): "auto" and "pallas" take the cache
-  scan through the kernel (its plain version on CPU tensors) when the
-  index carries the cache and ``lut_dtype`` allows it, else the decode
-  scan; "pallas_interpret" takes the cache scan through the kernel's plain
-  version; "xla" the decode scan. Each list keeps ``min(k, cap)``
-  candidates; beyond the kernel's 256 the cache scan runs its plain
-  version. ``local_recall_target`` and ``merge_recall_target`` are accepted
-  at any value and every selection is exact, as the reference's is off the
-  TPU (``lax.approx_min_k`` returns the exact top-k there); the
-  approximate kernel arms are not ported (ROADMAP.md, Queue B item 2).
+  Routes (``SearchParams.scan_impl``): "xla" takes the decode scan,
+  exact, as the reference's XLA body is; so does every search without
+  the cache or whose ``lut_dtype`` forbids it. The others take the cache
+  scan, routed as IVF-Flat's (``neighbors.common.scan_route``): each list
+  keeps ``min(k, cap)`` candidates, and below a ``local_recall_target``
+  of 1 the reference's binned extraction arm where it is eligible —
+  "pallas_interpret" the plain version with it, "pallas" the kernel with
+  it, "auto" on the card the kernel with it where ``min(k, cap)`` <= 64
+  and the cap is 128-aligned, exact otherwise (the plain version past
+  256), and on the CPU the exact plain version. ``merge_recall_target``
+  is accepted at any value and the merge is exact, as the reference's is
+  off the TPU (``lax.approx_min_k`` returns the exact top-k there).
   ``coarse_margins`` (:2339) is IVF-Flat's, which reads only the centers.
 
 Not ported: ``build_streamed`` and its checkpointed resume (with it
@@ -84,8 +86,7 @@ from raft_tpu_torch.distance.types import DistanceType, is_min_close, \
     resolve_metric
 from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.neighbors.common import as_filter, backend_name, \
-    backend_route, filter_keep, merge_topk, resolve_filter_bits, \
-    sentinel_for
+    filter_keep, merge_topk, resolve_filter_bits, scan_route, sentinel_for
 from raft_tpu_torch.neighbors.ivf_flat import _aligned_cap, _pack_lists, \
     adaptive_query_group, bucketize_pairs, coarse_distances, \
     coarse_margins, unbucketize_merge
@@ -952,11 +953,13 @@ def _norm_dtype_knob(v) -> str:
     raise ValueError(f"unknown dtype knob {v!r}")
 
 
-def _scan_route(requested: str, use_cache: bool, kl: int) -> str:
-    """"kernel" | "cache_plain" | "decode" for a ``scan_impl`` name: the
-    cache scan takes :func:`backend_route`'s kernel or plain route; "xla",
-    and every search without the cache, scores in the decode body, as the
-    reference's XLA body does."""
+def _scan_route(requested: str, use_cache: bool, kl: int, cap: int,
+                local_recall_target: float, device) -> Tuple[str, str]:
+    """(route, extraction arm) for a ``scan_impl`` name: route "kernel" |
+    "cache_plain" | "decode". The cache scan takes :func:`scan_route`'s
+    kernel or plain route and arm; "xla", and every search without the
+    cache, scores in the decode body, exactly, as the reference's XLA body
+    does."""
     name = backend_name(requested)
     if not use_cache:
         if name.startswith("pallas"):
@@ -964,20 +967,22 @@ def _scan_route(requested: str, use_cache: bool, kl: int) -> str:
                 f"scan_impl={requested!r} needs the decoded-residual cache "
                 "(build with cache_decoded=True and keep lut_dtype='auto'/"
                 "'i8')")
-        return "decode"
+        return "decode", "exact"
     if name == "xla":
-        return "decode"
-    route = backend_route(requested, kl=kl, k_max=ivf_scan.K_MAX)
-    return "kernel" if route == "kernel" else "cache_plain"
+        return "decode", "exact"
+    route, arm = scan_route(requested, kl, cap, local_recall_target, device)
+    return ("kernel" if route == "kernel" else "cache_plain"), arm
 
 
 def _cache_scan(index: Index, q_rot: torch.Tensor, bucket_list, bucket_q,
-                kl: int, keep, compute_dtype: str, plain: bool):
+                kl: int, keep, compute_dtype: str, plain: bool,
+                extract: str = "exact"):
     """Kernel 2 over the index's cache with residual queries: (candidate
     distances [nb, G, kl] in the metric's own space, ids). The query
     scale is the per-list ``cache_scales`` where the cache has them, 1
     for pq4 and RaBitQ, else ``recon_scale``; the packed caches take
-    their arm, RaBitQ with the queries zero-padded to its word width."""
+    their arm, RaBitQ with the queries zero-padded to its word width;
+    ``extract`` is the extraction arm."""
     scan = (ivf_scan.ivf_list_scan_topk_plain if plain
             else ivf_scan.ivf_list_scan_topk)
     kind = index.cache_kind
@@ -996,7 +1001,8 @@ def _cache_scan(index: Index, q_rot: torch.Tensor, bucket_list, bucket_q,
     arm = dict(k=kl, compute_dtype=compute_dtype, scale=scale,
                packed_i4=kind == "i4", packed_bits=kind == "rabitq",
                pq_centers=index.pq_centers if kind == "pq4" else None,
-               row_scale=index.cache_fac if kind == "rabitq" else None)
+               row_scale=index.cache_fac if kind == "rabitq" else None,
+               extract=extract)
     if ip:
         out_d, cand_i = scan(
             index.recon_cache, index.indices, index.list_sizes, bucket_list,
@@ -1115,7 +1121,7 @@ def _decode_scan(index: Index, q_rot: torch.Tensor, bucket_list, bucket_q,
 def _pq_search(index: Index, queries: torch.Tensor, k: int, n_probes: int,
                group: int, bucket_batch: int, filter_bits,
                filter_nbits: int, compute_dtype: str, lut: str,
-               internal: str, route: str):
+               internal: str, route: str, extract: str = "exact"):
     metric = index.metric
     select_min = is_min_close(metric)
     C, cap = index.indices.shape
@@ -1139,7 +1145,7 @@ def _pq_search(index: Index, queries: torch.Tensor, k: int, n_probes: int,
         cand_d, cand_i = _cache_scan(
             index, q_rot, bucket_list, bucket_q, kl, keep,
             "bf16" if compute_dtype == "bf16" else "f32",
-            plain=route == "cache_plain")
+            plain=route == "cache_plain", extract=extract)
     else:
         cand_d, cand_i = _decode_scan(
             index, q_rot, bucket_list, bucket_q, kl, filter_bits,
@@ -1186,8 +1192,9 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
         raise ValueError(
             "lut_dtype='i8' needs the decoded-residual cache; build with "
             "cache_decoded=True (and within _CACHE_BUDGET)")
-    route = _scan_route(str(search_params.scan_impl), use_cache,
-                        min(int(k), cap))
+    route, extract = _scan_route(
+        str(search_params.scan_impl), use_cache, min(int(k), cap), cap,
+        search_params.local_recall_target, dev)
     # the decode scan reads the codes unless it reads an i8 / i4 / RaBitQ
     # cache's rows instead
     if route == "decode" and index.codes.shape[-1] == 0 and not (
@@ -1201,7 +1208,7 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
         int(search_params.bucket_batch),
         None if bits is None else bits.bits.to(dev),
         0 if bits is None else int(bits.n_bits),
-        str(search_params.compute_dtype), lut, internal, route)
+        str(search_params.compute_dtype), lut, internal, route, extract)
 
 
 # ---------------------------------------------------------------------------

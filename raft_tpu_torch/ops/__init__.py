@@ -6,7 +6,9 @@ PyTorch version in the same module:
                                    _fused_kernel, exact arm)
     ivf_scan.ivf_list_scan_topk    IVF list scan + per-list top-k
                                    (replaces raft_tpu/ops/ivf_scan.py
-                                   _scan_kernel, float storage, exact)
+                                   _scan_kernel: float, int8 and packed
+                                   storage; exact, binned and
+                                   binned_deep extraction)
     graph_join.graph_local_join    nn-descent local join: score + unique
                                    top-K merge (replaces raft_tpu/ops/
                                    graph_join.py _join_kernel)

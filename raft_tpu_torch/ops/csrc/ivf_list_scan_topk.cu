@@ -50,11 +50,50 @@
 // list, one row a thread, summing p table entries per (query, row). Its
 // bound is operations: p adds per scored (query, row) on the f32 CUDA
 // cores, plus 2 * pq_len per table entry; chip_smoke.py counts both.
+//
+// Extraction arms (EXTRACT, extract at the C entry): exact, or the TPU
+// kernel's binned (raft_tpu/ops/ivf_scan.py:89) and binned_deep (:123),
+// for every storage mode and the pq4 kernel alike. The binned arms keep
+// per-(query, bin) slots in the dynamic shared memory where the exact arm
+// keeps its top-k lists (scan_topk.cuh), and after the scan each warp
+// extracts its queries' k entries and writes them with their ids, read
+// through the list's id row as the exact write-out reads them. They need
+// a cap that is a multiple of 128 over 128 (as the reference's), k <= 64
+// (binned) or 256, and cap / 128 <= 65,536 (a chunk in 16 bits). A
+// launch whose slots do not fit a block's shared memory returns its CUDA
+// error (binned_deep: 196,608 B at 64 queries beside the 35,328 B of
+// tiles, inside the 232,448 B a block may use).
 #include "scan_topk.cuh"
 
 using namespace rtt;
 
-template <typename T, bool STAGE_Q, int ROWS, bool SCALE_VEC>
+// The binned arms' write-out: warp w extracts queries w, w + 8, ... of the
+// block's `nq` (bins of query qq at sd / sc + qq * R * NBINS) into their
+// output rows; slots past G are not written.
+template <int EXTRACT>
+__device__ __forceinline__ void write_bins(const float* sd,
+                                           const uint16_t* sc, int nq,
+                                           const int* ids, int b, int g0,
+                                           int G, int k, float* out_d,
+                                           int* out_i) {
+  constexpr int R = bin_depth(EXTRACT);
+  const int lane = threadIdx.x & 31;
+  for (int qq = threadIdx.x >> 5; qq < nq; qq += NWARPS) {
+    const int g = g0 + qq;
+    if (g >= G) continue;
+    const size_t o = ((size_t)b * G + g) * k;
+#if RTT_STAGES < 2
+    // the stage builds leave the extraction out (the outputs are not
+    // results), keeping the bins live
+    if (lane == 0) out_d[o] = sd[qq * R * NBINS];
+#else
+    extract_bins<R>(sd + qq * R * NBINS, sc + qq * R * NBINS, k, ids,
+                    out_d + o, out_i + o, lane);
+#endif
+  }
+}
+
+template <typename T, bool STAGE_Q, int ROWS, bool SCALE_VEC, int EXTRACT>
 __global__ void __launch_bounds__(NTHREADS)
 ivf_list_scan_topk_kernel(const T* __restrict__ storage,
                           const int* __restrict__ indices,
@@ -74,8 +113,11 @@ ivf_list_scan_topk_kernel(const T* __restrict__ storage,
                           int* __restrict__ out_i) {
   __shared__ Tiles t;
   extern __shared__ __align__(16) unsigned char dyn[];
+  // the top-k lists (exact) or the bins' distances, then positions or
+  // chunks
   float* topd = reinterpret_cast<float*>(dyn);
-  int* topp = reinterpret_cast<int*>(topd + QT * k);
+  int* topp = reinterpret_cast<int*>(
+      topd + QT * (EXTRACT == kExact ? k : bin_depth(EXTRACT) * NBINS));
 
   const int b = blockIdx.x / n_sub;
   const int g0 = (blockIdx.x % n_sub) * QT;
@@ -112,7 +154,7 @@ ivf_list_scan_topk_kernel(const T* __restrict__ storage,
   // a list's rows: dense [cap, d], or packed [nw, cap] words
   const size_t list_elems = ROWS == kRowsDense ? (size_t)cap * d
                                                : (size_t)cap * nw;
-  scan_topk<T, STAGE_Q, ROWS, SCALE_VEC>(
+  scan_topk<T, STAGE_Q, ROWS, SCALE_VEC, EXTRACT>(
       t, topd, topp, queries, center, scale, storage + (size_t)l * list_elems,
       norms ? norms + base : nullptr, keep ? keep + base : nullptr, 0, size,
       d, k, metric, round_ops != 0,
@@ -120,13 +162,18 @@ ivf_list_scan_topk_kernel(const T* __restrict__ storage,
       row_scale ? row_scale + base : nullptr, cap);
   __syncthreads();
 
-  for (int e = threadIdx.x; e < QT * k; e += NTHREADS) {
-    const int g = g0 + e / k;
-    if (g >= G) continue;
-    const size_t o = ((size_t)b * G + g) * k + e % k;
-    const float dv = topd[e];
-    out_d[o] = dv;
-    out_i[o] = isinf(dv) ? -1 : indices[base + topp[e]];
+  if constexpr (EXTRACT == kExact) {
+    for (int e = threadIdx.x; e < QT * k; e += NTHREADS) {
+      const int g = g0 + e / k;
+      if (g >= G) continue;
+      const size_t o = ((size_t)b * G + g) * k + e % k;
+      const float dv = topd[e];
+      out_d[o] = dv;
+      out_i[o] = isinf(dv) ? -1 : indices[base + topp[e]];
+    }
+  } else {
+    write_bins<EXTRACT>(topd, reinterpret_cast<const uint16_t*>(topp),
+                        QT, indices + base, b, g0, G, k, out_d, out_i);
   }
 }
 
@@ -144,6 +191,7 @@ ivf_list_scan_topk_kernel(const T* __restrict__ storage,
 constexpr int PQ_QT = 16;
 constexpr int PQ_QPT = PQ_QT / (NTHREADS / RT);   // queries per thread
 
+template <int EXTRACT>
 __global__ void __launch_bounds__(NTHREADS)
 ivf_pq4_scan_topk_kernel(const uint32_t* __restrict__ storage,
                          const int* __restrict__ indices,
@@ -163,8 +211,12 @@ ivf_pq4_scan_topk_kernel(const uint32_t* __restrict__ storage,
   __shared__ float qas[PQ_QT];
   extern __shared__ __align__(16) unsigned char dyn[];
   float* lut = reinterpret_cast<float*>(dyn);          // [PQ_QT][p][16]
+  // the top-k lists (exact) or the bins (scan_topk.cuh)
+  constexpr int R = bin_depth(EXTRACT);
   float* topd = lut + (size_t)PQ_QT * p * 16;
-  int* topp = reinterpret_cast<int*>(topd + PQ_QT * k);
+  int* topp = reinterpret_cast<int*>(
+      topd + PQ_QT * (EXTRACT == kExact ? k : R * NBINS));
+  uint16_t* sc = reinterpret_cast<uint16_t*>(topp);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -216,9 +268,16 @@ ivf_pq4_scan_topk_kernel(const uint32_t* __restrict__ storage,
     }
     lut[e] = acc;
   }
-  for (int i = tid; i < PQ_QT * k; i += NTHREADS) {
-    topd[i] = INFINITY;
-    topp[i] = -1;
+  if constexpr (EXTRACT == kExact) {
+    for (int i = tid; i < PQ_QT * k; i += NTHREADS) {
+      topd[i] = INFINITY;
+      topp[i] = -1;
+    }
+  } else {
+    for (int i = tid; i < PQ_QT * R * NBINS; i += NTHREADS) {
+      topd[i] = INFINITY;
+      sc[i] = 0;
+    }
   }
   __syncthreads();
 
@@ -257,22 +316,31 @@ ivf_pq4_scan_topk_kernel(const uint32_t* __restrict__ storage,
     __syncthreads();
     for (int qq = warp; qq < PQ_QT; qq += NWARPS) {
       if (qidx[qq] < 0) continue;
-      fold_candidates(topd + qq * k, topp + qq * k, k, dist[qq], r0, lane);
+      if constexpr (EXTRACT == kExact)
+        fold_candidates(topd + qq * k, topp + qq * k, k, dist[qq], r0, lane);
+      else
+        bin_candidates<R>(topd + qq * R * NBINS, sc + qq * R * NBINS,
+                          dist[qq], r0, lane);
     }
     __syncthreads();
   }
 
-  for (int e = tid; e < PQ_QT * k; e += NTHREADS) {
-    const int gq = g0 + e / k;
-    if (gq >= G) continue;
-    const size_t o = ((size_t)b * G + gq) * k + e % k;
-    const float dv = topd[e];
-    out_d[o] = dv;
-    out_i[o] = isinf(dv) ? -1 : indices[base + topp[e]];
+  if constexpr (EXTRACT == kExact) {
+    for (int e = tid; e < PQ_QT * k; e += NTHREADS) {
+      const int gq = g0 + e / k;
+      if (gq >= G) continue;
+      const size_t o = ((size_t)b * G + gq) * k + e % k;
+      const float dv = topd[e];
+      out_d[o] = dv;
+      out_i[o] = isinf(dv) ? -1 : indices[base + topp[e]];
+    }
+  } else {
+    write_bins<EXTRACT>(topd, sc, PQ_QT, indices + base, b, g0, G, k, out_d,
+                        out_i);
   }
 }
 
-template <typename T, bool STAGE_Q, int ROWS, bool SCALE_VEC>
+template <typename T, bool STAGE_Q, int ROWS, bool SCALE_VEC, int EXTRACT>
 static int launch_as(const T* storage, const int* indices,
                      const int* list_sizes, const int* bucket_list,
                      const int* bucket_q, const float* queries,
@@ -283,8 +351,9 @@ static int launch_as(const T* storage, const int* indices,
                      int round_ops, float* out_d, int* out_i,
                      cudaStream_t stream) {
   const int n_sub = (G + QT - 1) / QT;
-  const size_t smem = topk_smem_bytes(k);
-  auto kernel = ivf_list_scan_topk_kernel<T, STAGE_Q, ROWS, SCALE_VEC>;
+  const size_t smem = topk_smem_bytes(k, EXTRACT);
+  auto kernel =
+      ivf_list_scan_topk_kernel<T, STAGE_Q, ROWS, SCALE_VEC, EXTRACT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
@@ -300,8 +369,30 @@ static int launch_as(const T* storage, const int* indices,
 
 // Residual, scaled or per-list-scaled queries are staged component by
 // component; plain queries (already rounded by the caller with round_ops)
-// are loaded as they are. Each mode is its own instantiation, so the
-// float arm compiles as it did before the packed arms.
+// are loaded as they are. Each mode and extraction arm is its own
+// instantiation, so the float arm's exact extraction compiles as it did
+// before the packed and binned arms.
+template <typename T, int ROWS, int EXTRACT>
+static int launch_arm(const T* storage, const int* indices,
+                      const int* list_sizes, const int* bucket_list,
+                      const int* bucket_q, const float* queries,
+                      const float* qaux, const float* norms, const int* keep,
+                      const float* centers, float scale,
+                      const float* scale_vec, const float* row_scale,
+                      int cap, int d, int nw, int nb, int G, int k,
+                      int metric, int round_ops, float* out_d, int* out_i,
+                      cudaStream_t stream) {
+#define RTT_LAUNCH(STAGE, VEC)                                                \
+  launch_as<T, STAGE, ROWS, VEC, EXTRACT>(                                    \
+      storage, indices, list_sizes, bucket_list, bucket_q, queries, qaux,     \
+      norms, keep, centers, scale, scale_vec, row_scale, cap, d, nw, nb, G,   \
+      k, metric, round_ops, out_d, out_i, stream)
+  if (scale_vec != nullptr) return RTT_LAUNCH(true, true);
+  if (centers != nullptr || scale != 1.f) return RTT_LAUNCH(true, false);
+  return RTT_LAUNCH(false, false);
+#undef RTT_LAUNCH
+}
+
 template <typename T, int ROWS>
 static int launch(const T* storage, const int* indices,
                   const int* list_sizes, const int* bucket_list,
@@ -309,18 +400,45 @@ static int launch(const T* storage, const int* indices,
                   const float* qaux, const float* norms, const int* keep,
                   const float* centers, float scale, const float* scale_vec,
                   const float* row_scale, int cap, int d, int nw, int nb,
-                  int G, int k, int metric, int round_ops, float* out_d,
-                  int* out_i, cudaStream_t stream) {
-#define RTT_LAUNCH(STAGE, VEC)                                               \
-  launch_as<T, STAGE, ROWS, VEC>(storage, indices, list_sizes, bucket_list,  \
-                                 bucket_q, queries, qaux, norms, keep,       \
-                                 centers, scale, scale_vec, row_scale, cap,  \
-                                 d, nw, nb, G, k, metric, round_ops, out_d,  \
-                                 out_i, stream)
-  if (scale_vec != nullptr) return RTT_LAUNCH(true, true);
-  if (centers != nullptr || scale != 1.f) return RTT_LAUNCH(true, false);
-  return RTT_LAUNCH(false, false);
-#undef RTT_LAUNCH
+                  int G, int k, int metric, int round_ops, int extract,
+                  float* out_d, int* out_i, cudaStream_t stream) {
+#define RTT_ARM(EXTRACT)                                                      \
+  launch_arm<T, ROWS, EXTRACT>(storage, indices, list_sizes, bucket_list,     \
+                               bucket_q, queries, qaux, norms, keep, centers, \
+                               scale, scale_vec, row_scale, cap, d, nw, nb,   \
+                               G, k, metric, round_ops, out_d, out_i, stream)
+  if (extract == kBinned) return RTT_ARM(kBinned);
+  if (extract == kBinnedDeep) return RTT_ARM(kBinnedDeep);
+  return RTT_ARM(kExact);
+#undef RTT_ARM
+}
+
+template <int EXTRACT>
+static int launch_pq4_arm(const uint32_t* storage, const int* indices,
+                          const int* list_sizes, const int* bucket_list,
+                          const int* bucket_q, const float* queries,
+                          const float* norms, const int* keep,
+                          const float* centers, const float* pq_centers,
+                          int cap, int nw, int p, int pl, int nb, int G,
+                          int k, int metric, int round_ops, float* out_d,
+                          int* out_i, cudaStream_t stream) {
+  const int n_sub = (G + PQ_QT - 1) / PQ_QT;
+  const size_t smem = (size_t)PQ_QT * p * 16 * sizeof(float) +
+                      topk_smem_bytes(k, EXTRACT, PQ_QT);
+  auto kernel = ivf_pq4_scan_topk_kernel<EXTRACT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // tables past a block's shared memory: report the error, and clear it so
+  // that the next launch's cudaGetLastError does not return it again
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  kernel<<<nb * n_sub, NTHREADS, smem, stream>>>(
+      storage, indices, list_sizes, bucket_list, bucket_q, queries, norms,
+      keep, centers, pq_centers, cap, nw, p, pl, G, k, n_sub, metric,
+      round_ops, out_d, out_i);
+  return (int)cudaGetLastError();
 }
 
 static int launch_pq4(const uint32_t* storage, const int* indices,
@@ -329,26 +447,17 @@ static int launch_pq4(const uint32_t* storage, const int* indices,
                       const float* norms, const int* keep,
                       const float* centers, const float* pq_centers,
                       int cap, int nw, int p, int pl, int nb, int G, int k,
-                      int metric, int round_ops, float* out_d, int* out_i,
-                      cudaStream_t stream) {
-  const int n_sub = (G + PQ_QT - 1) / PQ_QT;
-  const size_t smem =
-      (size_t)PQ_QT * p * 16 * sizeof(float) +
-      (size_t)PQ_QT * k * (sizeof(float) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      ivf_pq4_scan_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  // tables past a block's shared memory: report the error, and clear it so
-  // that the next launch's cudaGetLastError does not return it again
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
-  ivf_pq4_scan_topk_kernel<<<nb * n_sub, NTHREADS, smem, stream>>>(
-      storage, indices, list_sizes, bucket_list, bucket_q, queries, norms,
-      keep, centers, pq_centers, cap, nw, p, pl, G, k, n_sub, metric,
-      round_ops, out_d, out_i);
-  return (int)cudaGetLastError();
+                      int metric, int round_ops, int extract, float* out_d,
+                      int* out_i, cudaStream_t stream) {
+#define RTT_ARM(EXTRACT)                                                      \
+  launch_pq4_arm<EXTRACT>(storage, indices, list_sizes, bucket_list,          \
+                          bucket_q, queries, norms, keep, centers,            \
+                          pq_centers, cap, nw, p, pl, nb, G, k, metric,       \
+                          round_ops, out_d, out_i, stream)
+  if (extract == kBinned) return RTT_ARM(kBinned);
+  if (extract == kBinnedDeep) return RTT_ARM(kBinnedDeep);
+  return RTT_ARM(kExact);
+#undef RTT_ARM
 }
 
 // storage of kind storage_kind: 0 f32, 1 bf16, 2 int8 rows [C, cap, d];
@@ -363,7 +472,8 @@ static int launch_pq4(const uint32_t* storage, const int* indices,
 // multiplies each row's dot (kind 4, may be null); pq_centers [p, 16, pl]
 // (kind 5); round_ops computes in bf16: f32 rows and staged queries are
 // rounded to bf16, plain queries (no centers, scale 1) must come rounded
-// already; out_d / out_i [nb, G, k]. Returns a cudaError_t code.
+// already; extract 0 exact, 1 binned, 2 binned_deep; out_d / out_i
+// [nb, G, k]. Returns a cudaError_t code.
 extern "C" int ivf_list_scan_topk(
     const void* storage, int storage_kind, const void* indices,
     const void* list_sizes, const void* bucket_list, const void* bucket_q,
@@ -371,9 +481,14 @@ extern "C" int ivf_list_scan_topk(
     const void* keep, const void* centers, float scale,
     const void* scale_vec, const void* row_scale, const void* pq_centers,
     int cap, int d, int nw, int p, int pl, int nb, int G, int k, int metric,
-    int round_ops, void* out_d, void* out_i, void* stream) {
+    int round_ops, int extract, void* out_d, void* out_i, void* stream) {
   if (k < 1 || k > KMAX || cap < 1 || d < 1 || nb < 1 || G < 1 ||
-      storage_kind < 0 || storage_kind > 5)
+      storage_kind < 0 || storage_kind > 5 || extract < kExact ||
+      extract > kBinnedDeep)
+    return (int)cudaErrorInvalidValue;
+  if (extract != kExact &&
+      (cap % NBINS != 0 || cap <= NBINS || cap / NBINS > 65536 ||
+       k > (extract == kBinned ? 64 : KMAX)))
     return (int)cudaErrorInvalidValue;
   if (storage_kind >= 3 && (nw < 1 || (storage_kind == 3 && d != 8 * nw) ||
                             (storage_kind == 4 && d != 32 * nw)))
@@ -402,30 +517,30 @@ extern "C" int ivf_list_scan_topk(
       return launch<__nv_bfloat16, kRowsDense>(
           static_cast<const __nv_bfloat16*>(storage), ix, ls, bl, bq, q, qa,
           xn, kp, ct, scale, sv, nullptr, cap, d, 0, nb, G, k, metric,
-          round_ops, od, oi, s);
+          round_ops, extract, od, oi, s);
     case 2:
       return launch<int8_t, kRowsDense>(
           static_cast<const int8_t*>(storage), ix, ls, bl, bq, q, qa, xn, kp,
-          ct, scale, sv, nullptr, cap, d, 0, nb, G, k, metric, round_ops, od,
-          oi, s);
+          ct, scale, sv, nullptr, cap, d, 0, nb, G, k, metric, round_ops,
+          extract, od, oi, s);
     case 3:
       return launch<uint32_t, kRowsI4>(words, ix, ls, bl, bq, q, qa, xn, kp,
                                        ct, scale, sv, nullptr, cap, d, nw,
-                                       nb, G, k, metric, round_ops, od, oi,
-                                       s);
+                                       nb, G, k, metric, round_ops, extract,
+                                       od, oi, s);
     case 4:
       return launch<uint32_t, kRowsBits>(words, ix, ls, bl, bq, q, qa, xn,
                                          kp, ct, scale, sv, rs, cap, d, nw,
-                                         nb, G, k, metric, round_ops, od, oi,
-                                         s);
+                                         nb, G, k, metric, round_ops,
+                                         extract, od, oi, s);
     case 5:
       return launch_pq4(words, ix, ls, bl, bq, q, xn, kp, ct,
                         static_cast<const float*>(pq_centers), cap, nw, p, pl,
-                        nb, G, k, metric, round_ops, od, oi, s);
+                        nb, G, k, metric, round_ops, extract, od, oi, s);
     default:
       return launch<float, kRowsDense>(
           static_cast<const float*>(storage), ix, ls, bl, bq, q, qa, xn, kp,
-          ct, scale, sv, nullptr, cap, d, 0, nb, G, k, metric, round_ops, od,
-          oi, s);
+          ct, scale, sv, nullptr, cap, d, 0, nb, G, k, metric, round_ops,
+          extract, od, oi, s);
   }
 }

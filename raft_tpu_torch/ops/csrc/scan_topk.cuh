@@ -32,10 +32,28 @@
 // distance, and each is inserted in position order by one warp-wide shift
 // of the sorted list (kept in dynamic shared memory, k <= 256).
 //
+// Extraction (EXTRACT, a compile-time switch; exact by default). The
+// binned arms of the TPU kernel (raft_tpu/ops/ivf_scan.py:89 binned, :123
+// binned_deep) keep, instead of the top-k lists, R slots per bin of 128
+// (R = 1 binned, 4 binned_deep), a position's bin being its offset from
+// the scan's first position mod 128: level r of bin b of query q at
+// [q][r][b], the distance as a float and the position as its 128-chunk in
+// 16 bits (6 bytes a slot, so binned_deep's 64 queries x 512 slots fit
+// beside the tiles in one block's 227 KB). A newcomer enters by the
+// reference's compare-swap cascade with a strict `<` (bin_candidates):
+// it takes the first level whose slot it beats and the displaced slot
+// goes on down. A 64-row tile that starts at a multiple of 64 covers 64
+// distinct bins, so the lane that owns a (query, position) owns its bin
+// for that tile, and tiles taken in position order give the reference's
+// order with no atomics. After the scan a warp extracts each of its
+// queries' k entries (extract_bins), ordered as the reference's arms
+// order them.
+//
 // RTT_STAGES (a build flag, ops/_build.py) compiles in only the first
 // stages, to split the kernel's time: 0 = the staging loads and the
 // epilogue, 1 = plus the dots, 2 = plus the top-k selection (the whole
-// kernel, the default). With fewer than 2 the outputs are not results.
+// kernel, the default; for the binned arms the bin updates and the
+// extraction). With fewer than 2 the outputs are not results.
 #pragma once
 
 #ifndef RTT_STAGES
@@ -44,6 +62,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -62,6 +81,13 @@ constexpr int KPL = KMAX / 32;  // list slots per lane during an insertion
 
 enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };
 enum Rows { kRowsDense = 0, kRowsI4 = 1, kRowsBits = 2 };
+enum Extract { kExact = 0, kBinned = 1, kBinnedDeep = 2 };
+
+constexpr int NBINS = 128;      // bins of the binned arms
+// slots a bin keeps: one for binned, R = 4 for binned_deep
+__host__ __device__ constexpr int bin_depth(int extract) {
+  return extract == kBinnedDeep ? 4 : 1;
+}
 
 struct __align__(16) Tiles {
   float qs[DK][QT + PAD];       // query slice, transposed
@@ -157,6 +183,99 @@ __device__ __forceinline__ void fold_candidates(float* td, int* tp, int k,
   }
 }
 
+// Folds one query's row of RT tile distances `drow` (positions rel, rel +
+// 1, ..., rel a multiple of RT from the scan's first) into its bins of
+// depth R: level r of bin b at sd / sc[r * NBINS + b], sc holding the
+// position's 128-chunk. Lane l owns positions rel + l and rel + 32 + l.
+// A distance that does not beat the bin's last level changes nothing (the
+// levels are sorted), so most candidates stop at one read; +inf and NaN
+// never enter.
+template <int R>
+__device__ __forceinline__ void bin_candidates(float* sd, uint16_t* sc,
+                                               const float* drow, int rel,
+                                               int lane) {
+  const uint16_t chunk = static_cast<uint16_t>(rel >> 7);
+#pragma unroll
+  for (int half = 0; half < RT; half += 32) {
+    float nd = drow[half + lane];
+    const int b = (rel + half + lane) & (NBINS - 1);
+    if (!(nd < sd[(R - 1) * NBINS + b])) continue;
+    uint16_t nc = chunk;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float od = sd[r * NBINS + b];
+      if (nd < od) {
+        const uint16_t oc = sc[r * NBINS + b];
+        sd[r * NBINS + b] = nd;
+        sc[r * NBINS + b] = nc;
+        nd = od;
+        nc = oc;
+      }
+    }
+  }
+}
+
+// One warp takes k entries from one query's bins of depth R (sd / sc of
+// that query, [R][NBINS]) in the reference's order — binned (R = 1) by
+// distance, then position; binned_deep by distance, then bin, then level
+// — and writes each entry's distance and id (ids[position]) to od / oi;
+// once the least left is +inf the rest are (+inf, -1). Lane l holds bins
+// l, l + 32, l + 64, l + 96 in registers; each pass is a lane-local
+// minimum and a 5-step butterfly over (distance, key), after which the
+// lane holding the winner drops it. All 32 lanes call it.
+template <int R>
+__device__ void extract_bins(const float* sd, const uint16_t* sc, int k,
+                             const int* __restrict__ ids, float* od,
+                             int* oi, int lane) {
+  constexpr int S = 4 * R;
+  float v[S];
+  int key[S];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int b = lane + 32 * i;
+      v[i * R + r] = sd[r * NBINS + b];
+      key[i * R + r] = R == 1 ? b + NBINS * sc[b] : b * R + r;
+    }
+  for (int j = 0; j < k; ++j) {
+    float bd = INFINITY;
+    int bk = INT_MAX;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (v[s] < bd || (v[s] == bd && key[s] < bk)) {
+        bd = v[s];
+        bk = key[s];
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float d2 = __shfl_xor_sync(0xffffffffu, bd, off);
+      const int k2 = __shfl_xor_sync(0xffffffffu, bk, off);
+      if (d2 < bd || (d2 == bd && k2 < bk)) {
+        bd = d2;
+        bk = k2;
+      }
+    }
+    if (bd == INFINITY) {
+      for (int jj = j + lane; jj < k; jj += 32) {
+        od[jj] = INFINITY;
+        oi[jj] = -1;
+      }
+      return;
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (key[s] == bk) v[s] = INFINITY;
+    if (lane == 0) {
+      const int pos =
+          R == 1 ? bk
+                 : bk / R + NBINS * sc[(bk % R) * NBINS + bk / R];
+      od[j] = bd;
+      oi[j] = ids[pos];
+    }
+  }
+}
+
 // The min-space distance of one (query, row) pair from its dot, the
 // query's qaux and the row's norm xn (unread for inner product) and
 // plen = sqrt(max(xn, 1e-30)) (read for cosine only).
@@ -179,8 +298,11 @@ __device__ __forceinline__ float epilogue_dist(float dot, float qa, float xn,
 // given. f32 rows are rounded to bf16 with `round_ops`. Packed rows
 // (ROWS) are words of type T = uint32_t, `row_stride` words apart per
 // word-row, and `row_scale` (RaBitQ, may be null) is indexed by position.
+// With a binned EXTRACT the block keeps bins instead (header): topd holds
+// the distances [QT][R][NBINS] and topp, read as uint16_t, the chunks;
+// unfilled slots hold +inf, and the caller extracts (extract_bins).
 template <typename T, bool STAGE_Q, int ROWS = kRowsDense,
-          bool SCALE_VEC = false>
+          bool SCALE_VEC = false, int EXTRACT = kExact>
 __device__ void scan_topk(Tiles& t, float* topd, int* topp,
                           const float* __restrict__ queries,
                           const float* __restrict__ qcenter, float qscale,
@@ -198,9 +320,18 @@ __device__ void scan_topk(Tiles& t, float* topd, int* topp,
   const int ty = tid >> 4;
   const int tx = tid & 15;
 
-  for (int i = tid; i < QT * k; i += NTHREADS) {
-    topd[i] = INFINITY;
-    topp[i] = -1;
+  constexpr int R = bin_depth(EXTRACT);
+  uint16_t* sc = reinterpret_cast<uint16_t*>(topp);
+  if constexpr (EXTRACT == kExact) {
+    for (int i = tid; i < QT * k; i += NTHREADS) {
+      topd[i] = INFINITY;
+      topp[i] = -1;
+    }
+  } else {
+    for (int i = tid; i < QT * R * NBINS; i += NTHREADS) {
+      topd[i] = INFINITY;
+      sc[i] = 0;
+    }
   }
   __syncthreads();
   float qa[4];
@@ -319,26 +450,42 @@ __device__ void scan_topk(Tiles& t, float* topd, int* topp,
 
     for (int qq = warp; qq < QT; qq += NWARPS) {
       if (t.qidx[qq] < 0) continue;
-      float* td = topd + qq * k;
-      int* tp = topp + qq * k;
+      if constexpr (EXTRACT == kExact) {
+        float* td = topd + qq * k;
+        int* tp = topp + qq * k;
 #if RTT_STAGES < 2
-      // keep the distances live without the selection (and every stored
-      // position valid, since the caller reads ids through them)
-      if (lane == 0) {
-        td[0] = fminf(td[0], t.dist[qq][r0 & 31]);
-        tp[0] = r0;
-      }
+        // keep the distances live without the selection (and every stored
+        // position valid, since the caller reads ids through them)
+        if (lane == 0) {
+          td[0] = fminf(td[0], t.dist[qq][r0 & 31]);
+          tp[0] = r0;
+        }
 #else
-      fold_candidates(td, tp, k, t.dist[qq], r0, lane);
+        fold_candidates(td, tp, k, t.dist[qq], r0, lane);
 #endif
+      } else {
+        float* qd = topd + qq * R * NBINS;
+#if RTT_STAGES < 2
+        // keep the distances live without the bins (chunk 0 of bin 0 is
+        // a valid position)
+        if (lane == 0) qd[0] = fminf(qd[0], t.dist[qq][r0 & 31]);
+#else
+        bin_candidates<R>(qd, sc + qq * R * NBINS, t.dist[qq],
+                          r0 - p_begin, lane);
+#endif
+      }
     }
     __syncthreads();
   }
 }
 
-// Dynamic shared memory a block needs for its top-k lists.
-inline size_t topk_smem_bytes(int k) {
-  return (size_t)QT * k * (sizeof(float) + sizeof(int));
+// Dynamic shared memory a block of `nq` queries needs for its top-k lists
+// (exact) or its bins (the binned arms).
+inline size_t topk_smem_bytes(int k, int extract = kExact, int nq = QT) {
+  if (extract == kExact)
+    return (size_t)nq * k * (sizeof(float) + sizeof(int));
+  return (size_t)nq * bin_depth(extract) * NBINS *
+         (sizeof(float) + sizeof(uint16_t));
 }
 
 }  // namespace rtt

@@ -1,9 +1,10 @@
 """IVF list scan + per-list top-k: the CUDA kernel and its plain version.
 
 Replaces ``raft_tpu/ops/ivf_scan.py:_scan_kernel`` (``pallas_call`` at
-:547) with exact extraction: the float-storage arm, the int8 rows that its
-float branch widens (:302-308, IVF-PQ's int8 caches) and the three packed
-storage arms (:221-296, IVF-PQ's compressed caches). One step per bucket —
+:547): the float-storage arm, the int8 rows that its float branch widens
+(:302-308, IVF-PQ's int8 caches) and the three packed storage arms
+(:221-296, IVF-PQ's compressed caches), each with the exact extraction and
+the binned ones (below). One step per bucket —
 one query group against one inverted list: the list is found through
 ``bucket_list[b]``, ``dots = q . row`` with f32 accumulation, the L2 /
 inner-product / cosine epilogue in min-space, columns past
@@ -53,10 +54,31 @@ uint32 bits, rows on the fast axis (at most one of the three):
   staged query, the codebook and each table entry are rounded to bf16,
   where the reference casts ``qv``, the codebook weights and ``lut_v``.
 
+Extraction (``extract``), in min-space over a bucket's [G, cap]
+distances, masked and out-of-list positions +inf. "exact" keeps each
+query's top-k (ties to the lower position). The lane-binned arms of the
+reference (``_extract_topk_binned`` :89, ``_extract_topk_binned_deep``
+:123) fold the distances into 128 bins, a position's bin being its list
+position mod 128:
+
+* "binned" keeps one slot a bin, the bin's smallest distance (the lowest
+  position among equals), and takes the k smallest slots, ties to the
+  lowest position;
+* "binned_deep" keeps R = 4 slots a bin, filled in position order by a
+  compare-swap cascade (a newcomer takes the first level whose slot it
+  beats strictly, and the slot it displaces goes on down), and takes the
+  k smallest of the 128 R slots, ties to the lowest bin, then the lowest
+  level.
+
+A true neighbour is lost where more than R (one for "binned") of a list's
+top-k share a bin. :func:`eligible_extracts` and :func:`pick_extract` are
+the reference's eligibility and analytic pick (``ivf_scan.py:421-436``);
+its third approximate arm, ``fold`` (:169), is not ported (ROADMAP.md,
+Queue B item 2).
+
 On a CUDA tensor :func:`ivf_list_scan_topk` launches
 ``csrc/ivf_list_scan_topk.cu`` or raises; on a CPU tensor it runs
-:func:`ivf_list_scan_topk_plain`; nothing else. The binned / fold
-extractions are not ported (ROADMAP.md, Queue B).
+:func:`ivf_list_scan_topk_plain`; nothing else.
 """
 
 from __future__ import annotations
@@ -75,6 +97,57 @@ _PLAIN_BUCKETS = 64     # buckets per plain-version batch
 # the kernel's storage_kind: dense rows by dtype, packed words by arm
 _STORAGE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 I4, BITS, PQ4 = 3, 4, 5
+# the kernel's extraction arm by name, and each arm's slots per bin
+EXTRACTS = {"exact": 0, "binned": 1, "binned_deep": 2}
+_BIN_DEPTH = {"binned": 1, "binned_deep": 4}
+_BINS = 128
+
+# the per-list recall budget the binned arm is judged against when the
+# caller does not say (the SearchParams default)
+DEFAULT_RECALL_TARGET = 0.95
+
+
+def binned_loss_fits(k: int,
+                     recall_target: float = DEFAULT_RECALL_TARGET) -> bool:
+    """The one-slot binning's loss model (``ivf_scan.py:48``): a bin keeps
+    one candidate, so a true top-k entry is lost whenever a better one
+    shares its bin — an expected lost fraction of ~(k - 1) / 256. A
+    ``recall_target`` of 0 or less always fits."""
+    rt = float(recall_target)
+    return rt <= 0.0 or (k - 1) / 256.0 <= max(0.0, 1.0 - rt)
+
+
+def binned_k_cap(recall_target: float = DEFAULT_RECALL_TARGET) -> int:
+    """The largest k the loss model admits at ``recall_target`` (at most
+    64, the one-slot arm's own limit)."""
+    k = 64
+    while k > 1 and not binned_loss_fits(k, recall_target):
+        k -= 1
+    return k
+
+
+def eligible_extracts(k: int, cap: int, approx: bool = True,
+                      recall_target: float = DEFAULT_RECALL_TARGET) -> list:
+    """The extraction arms allowed for ``k`` of a list capacity ``cap``
+    (``ivf_scan.py:421-432``): the binned arms need ``approx``, a cap
+    that is a multiple of 128 over 128, and k <= 256; the one-slot arm
+    also k <= 64 within the loss model. ``fold`` is not ported."""
+    binned_ok = approx and cap % _BINS == 0 and cap > _BINS
+    eligible = ["exact"]
+    if binned_ok and k <= 64 and binned_loss_fits(k, recall_target):
+        eligible.append("binned")
+    if binned_ok and k <= 256:
+        eligible.append("binned_deep")
+    return eligible
+
+
+def pick_extract(k: int, cap: int, approx: bool = True,
+                 recall_target: float = DEFAULT_RECALL_TARGET) -> str:
+    """The reference's analytic pick (``ivf_scan.py:433-436``): binned
+    wherever it is eligible, else binned_deep, else exact."""
+    eligible = eligible_extracts(k, cap, approx, recall_target)
+    return ("binned" if "binned" in eligible
+            else "binned_deep" if "binned_deep" in eligible else "exact")
 
 
 def storage_kind(storage: torch.Tensor, packed_i4: bool = False,
@@ -122,8 +195,16 @@ def _geometry(storage, kind, pq_centers) -> Tuple[int, int, int]:
 
 def _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
            metric_kind, qaux, norms, centers, compute_dtype, k_max, scale,
-           kind, pq_centers, row_scale):
+           kind, pq_centers, row_scale, extract):
     C, cap, d = _geometry(storage, kind, pq_centers)
+    if extract not in EXTRACTS:
+        raise ValueError(f"extract must be one of {sorted(EXTRACTS)}, got "
+                         f"{extract!r}")
+    # the structural rule (a recall target of 0 admits any loss)
+    if extract not in eligible_extracts(k, cap, True, 0.0):
+        raise ValueError(f"extract={extract!r} not eligible at k={k}, "
+                         f"cap={cap} (binned arms: cap a multiple of 128 "
+                         f"over 128; k <= 64 binned, <= 256 binned_deep)")
     if tuple(indices.shape) != (C, cap) or tuple(list_sizes.shape) != (C,):
         raise ValueError("indices must be [C, cap] and list_sizes [C]")
     if bucket_q.dim() != 2 or bucket_q.shape[0] != bucket_list.shape[0]:
@@ -184,6 +265,7 @@ def ivf_list_scan_topk(storage: torch.Tensor, indices: torch.Tensor,
                        packed_i4: bool = False, packed_bits: bool = False,
                        pq_centers: Optional[torch.Tensor] = None,
                        row_scale: Optional[torch.Tensor] = None,
+                       extract: str = "exact",
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan each bucket's list against its query group; returns
     (out_d [nb, G, k] f32 min-space, out_i [nb, G, k] int32 global ids).
@@ -196,25 +278,27 @@ def ivf_list_scan_topk(storage: torch.Tensor, indices: torch.Tensor,
     product); ``keep`` [C, cap] (nonzero = eligible) or None;
     ``compute_dtype``, ``centers``, ``scale`` and the packed arms
     (``packed_i4``, ``packed_bits`` with ``row_scale``, ``pq_centers``)
-    as in the module docstring."""
+    and ``extract`` ("exact", "binned", "binned_deep") as in the module
+    docstring."""
     cd = _compute_dtype(queries, compute_dtype)
     kind = storage_kind(storage, packed_i4, packed_bits, pq_centers)
     _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
            metric_kind, qaux, norms, centers, cd, K_MAX, scale, kind,
-           pq_centers, row_scale)
+           pq_centers, row_scale, extract)
     if storage.device.type == "cpu":
         return ivf_list_scan_topk_plain(
             storage, indices, list_sizes, bucket_list, bucket_q, queries,
             qaux, norms, keep, k=k, metric_kind=metric_kind,
             compute_dtype=cd, centers=centers, scale=scale,
             packed_i4=packed_i4, packed_bits=packed_bits,
-            pq_centers=pq_centers, row_scale=row_scale)
+            pq_centers=pq_centers, row_scale=row_scale, extract=extract)
     if not storage.is_cuda:
         raise ValueError(f"ivf_list_scan_topk takes CPU or CUDA tensors, got "
                          f"{storage.device}")
     return _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
                    queries, qaux, norms, keep, int(k), int(metric_kind),
-                   cd == "bf16", centers, scale, pq_centers, row_scale)
+                   cd == "bf16", centers, scale, pq_centers, row_scale,
+                   EXTRACTS[extract])
 
 
 ivf_list_scan_topk.launches = 0
@@ -222,7 +306,7 @@ ivf_list_scan_topk.launches = 0
 
 def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
             queries, qaux, norms, keep, k, metric_kind, bf16, centers, scale,
-            pq_centers, row_scale):
+            pq_centers, row_scale, extract):
     dev = storage.device
     C, cap, d = _geometry(storage, kind, pq_centers)
     nb, G = bucket_q.shape
@@ -248,8 +332,8 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
     if kind >= I4:
         nw = st.shape[1]
     if kind == PQ4:
-        # a p or k whose tables overflow a block's shared memory comes
-        # back from the launch as a CUDA error
+        # a p or k whose tables (or bins) overflow a block's shared memory
+        # comes back from the launch as a CUDA error
         p, _, pl = pq_centers.shape
     args = dict(ix=i32(indices), ls=i32(list_sizes), bl=i32(bucket_list),
                 bq=i32(bucket_q), qa=None if centers is not None
@@ -264,7 +348,7 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_void_p] * 9 + [ctypes.c_float]
                    + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
 
     ptr = _build.ptr
@@ -274,8 +358,8 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
                 ptr(args["bl"]), ptr(args["bq"]), ptr(q32), ptr(args["qa"]),
                 ptr(args["xn"]), ptr(args["kp"]), ptr(args["ct"]), scalar,
                 ptr(args["sv"]), ptr(args["rs"]), ptr(args["pc"]), cap, d,
-                nw, p, pl, nb, G, k, metric_kind, int(bf16), ptr(out_d),
-                ptr(out_i), stream)
+                nw, p, pl, nb, G, k, metric_kind, int(bf16), extract,
+                ptr(out_d), ptr(out_i), stream)
     _build.check(lib, "ivf_list_scan_topk", rc)
     ivf_list_scan_topk.launches += 1
     return out_d, out_i
@@ -347,19 +431,20 @@ def ivf_list_scan_topk_plain(storage: torch.Tensor, indices: torch.Tensor,
                              packed_bits: bool = False,
                              pq_centers: Optional[torch.Tensor] = None,
                              row_scale: Optional[torch.Tensor] = None,
+                             extract: str = "exact",
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: batches of buckets gather
     their list blocks (decoding packed words) and queries (subtracting,
     scaling and rounding as the kernel stages them), take a batched f32
     product (the pq4 arm: table lookups summed in the kernel's order),
     mask, and keep each query's top-k with a stable sort (ties to the
-    lower list position). It keeps any k up to the capacity (the kernel:
-    256)."""
+    lower list position), or its binned top-k (:func:`binned_topk`). The
+    exact arm keeps any k up to the capacity (the kernel: 256)."""
     cd = _compute_dtype(queries, compute_dtype)
     kind = storage_kind(storage, packed_i4, packed_bits, pq_centers)
     _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
            metric_kind, qaux, norms, centers, cd, indices.shape[1], scale,
-           kind, pq_centers, row_scale)
+           kind, pq_centers, row_scale, extract)
     cap = indices.shape[1]
     nb, G = bucket_q.shape
     dev = storage.device
@@ -409,8 +494,57 @@ def ivf_list_scan_topk_plain(storage: torch.Tensor, indices: torch.Tensor,
             valid = valid & (keep[bl] > 0)
         valid = valid[:, None, :] & (bq >= 0)[:, :, None]
         dist = torch.where(valid, dist, float("inf"))
-        ids = indices[bl].to(torch.int32)[:, None, :].expand(-1, G, -1)
-        d_k, i_k = merge_topk(dist, ids, k, select_min=True)
+        if extract == "exact":
+            ids = indices[bl].to(torch.int32)[:, None, :].expand(-1, G, -1)
+            d_k, i_k = merge_topk(dist, ids, k, select_min=True)
+        else:
+            d_k, i_k = binned_topk(dist, indices[bl], k, extract)
         out_d.append(d_k)
         out_i.append(torch.where(torch.isinf(d_k), -1, i_k))
     return torch.cat(out_d), torch.cat(out_i).to(torch.int32)
+
+
+def binned_topk(dist: torch.Tensor, ids: torch.Tensor, k: int,
+                extract: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The binned arms' extraction over min-space distances [bb, G, cap]
+    (cap a multiple of 128; +inf where masked) with the lists' ids
+    [bb, cap]: (distances [bb, G, k], ids, -1 where +inf).
+
+    Each bin keeps a stack of R slots (one for "binned"), filled 128
+    positions at a time in list order by the reference's compare-swap
+    cascade with a strict ``<``: a newcomer enters at the first level
+    whose slot it beats and the slot it displaces goes on down. Equal
+    distances therefore do not stay in position order — a displaced entry
+    passes an equal one below it — so a stable sort of each bin would keep
+    other entries than the kernels do. "binned" takes its k smallest slots
+    by (distance, position), "binned_deep" its k smallest of the 128 R by
+    (distance, bin, level)."""
+    bb, G, cap = dist.shape
+    R = _BIN_DEPTH[extract]
+    inf = torch.tensor(float("inf"), device=dist.device)
+    sd = [inf.expand(bb, G, _BINS)] * R
+    sp = [torch.zeros((bb, G, _BINS), dtype=torch.long,
+                      device=dist.device)] * R
+    lane = torch.arange(_BINS, device=dist.device)
+    for c0 in range(0, cap, _BINS):
+        nd = dist[:, :, c0:c0 + _BINS]
+        npos = (lane + c0).expand(bb, G, _BINS)
+        for r in range(R):
+            swap = nd < sd[r]
+            sd[r], nd = torch.where(swap, nd, sd[r]), torch.where(swap, sd[r],
+                                                                 nd)
+            sp[r], npos = (torch.where(swap, npos, sp[r]),
+                           torch.where(swap, sp[r], npos))
+    # slots in (bin, level) order; "binned" reorders them by position so
+    # that the stable sort below breaks its ties by position
+    sd = torch.stack(sd, -1).reshape(bb, G, _BINS * R)
+    pos = torch.stack(sp, -1).reshape(bb, G, _BINS * R)
+    if R == 1:
+        by_pos = torch.argsort(pos, dim=-1)
+        sd, pos = sd.gather(-1, by_pos), pos.gather(-1, by_pos)
+    order = torch.sort(sd, dim=-1, stable=True).indices[..., :k]
+    d_k = sd.gather(-1, order)
+    p_k = pos.gather(-1, order)
+    i_k = ids.to(torch.int32).gather(-1, p_k.reshape(bb, G * k)).reshape(
+        bb, G, k)
+    return d_k, torch.where(torch.isinf(d_k), -1, i_k)

@@ -117,7 +117,8 @@ def test_cache_scan_inner_product_per_cluster(ip_index):
     jix, pix, q = ip_index
     pd, pi, jd, ji = _both(jix, pix, q, 10,
                            dict(scan_impl="pallas_interpret"),
-                           dict(scan_impl="pallas_interpret"))
+                           dict(scan_impl="pallas_interpret",
+                                local_recall_target=1.0))
     assert_topk_match(pd, pi, jd, ji, 10)
 
 
