@@ -25,7 +25,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              binned and binned_deep extraction arms on every storage
              kind, caps 256 and 384, k 1 to 256, with duplicate rows,
              bit for bit wherever the exact arm is, and refused at cap
-             128), then at the paths' own shapes; then a small IVF-Flat,
+             128; the fold arms of both kernels, unmerged buffers bit for
+             bit: kernel 1's for every metric, f32 and bf16, R = 2, 3, 4
+             and each tile of tuning.FUSED_TOPK_TILES with n off the tile,
+             kernel 2's on every storage kind and the pq4 kernel at R = 2
+             and 4), then at the paths' own shapes; then a small IVF-Flat,
              a small IVF-PQ (L2 and inner product, then one per cache
              rung: i4, pq4, RaBitQ, raw i4, raw i8), each with the exact
              and the binned arm, and a small CAGRA search on the card
@@ -36,7 +40,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              exact arm), recall@10 against the port's exact brute force on
              1,000 queries (>= 0.90), QPS as the median of 5 timed batches
              after a warm-up, and a profiler breakdown of one batch; then
-             its default search (phase 8);
+             its default search (phase 8); then the fast brute force
+             (brute_force.search(fast=True), k=10, k_cand=42) on the same
+             rows and queries: its default on the card must take kernel
+             1's fold at fused_fold:2048 (from the launch record); the
+             same call at impl="fused_exact" beside it; recall@10 of both
+             (the fold's no more than 0.01 under the exact arm's), QPS
+             and a profile;
 5. CAGRA paths — on the same rows: (a) nn-descent
              (intermediate_graph_degree=64, at most 80 iterations) ->
              optimize (graph_degree=32) -> packed inline layout, with the
@@ -83,15 +93,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
              search's shapes by stage beside its plain version and bound.
              Each must reach its exact run's recall less 0.05 (raw, and
              refined where refined); IVF-Flat also 0.90, refined IVF-PQ
-             0.95; the raw rungs' absolute floor is printed, not held;
+             0.95; the raw rungs' absolute floor is printed, not held.
+             Then IVF-Flat (k=10) and IVF-PQ int8 (k=10, and the refined
+             search's 30) again under a dispatch table written to a
+             temporary file that names kernel 2's fold for each search's
+             key {cap, k, g} (tuning.set_table_path, restored after): the
+             fold arm recorded, the same gates;
 9. report  — each kernel (and kernel 2's int8 arm) timed at its path's
              shapes beside its plain version and its bound (the scan
              kernels also by stage: staging loads and epilogue, dots,
              top-k selection; the packed and binned arms were timed on
              their paths); then the nvidia-smi line, one JSON line of
              per-kernel numbers (binned from the IVF-Flat default search,
-             binned_deep from the refined IVF-PQ one), and last the
-             result line.
+             binned_deep from the refined IVF-PQ one, kernel 1's fold from
+             the fast brute force, kernel 2's fold from IVF-Flat under the
+             fold table; a fold's bound counts its candidate write), and
+             last the result line.
 
 Tolerances: the brute-force, list-scan and join kernels and their plain
 versions sum f32 products in different orders, so distances agree to
@@ -102,9 +119,9 @@ its neighbour in the row (a tie). The int8, i4 and sign-bit arms'
 residual queries, their qaux and the operand rounding are computed in one
 order by both, so only the dots' sum order differs. The pq4 arm, and the
 beam step, and their plain versions round and sum in one fixed order, so
-they must agree bit for bit. The binned arms keep what the reference's
-bin rules keep from the same distances, so wherever the exact arm agrees
-bit for bit, they must too.
+they must agree bit for bit. The binned and fold arms keep what the
+reference's bin rules keep from the same distances, so wherever the exact
+arm agrees bit for bit, they must too.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -546,6 +563,42 @@ def binned_case(g, dev, arm, C, cap, rot, p=0, pl=0):
     return storage, kw, width, xn, keep
 
 
+def scan_case(g, dev, arm, cap, rot, p, pl, k, mk, filt, cd, C=12, nb=30,
+              G=256, m=400):
+    """One small kernel-2 case of the binned and fold phases: binned_case's
+    rows of ``arm`` in C lists of capacity ``cap`` (one empty, one of 5
+    rows, one full), nb buckets of G query slots (some empty) over m
+    queries, residual queries for L2 on the cache kinds. Returns the
+    scan's (positional arguments, keyword arguments)."""
+    from raft_tpu_torch.ops.ivf_scan import L2
+
+    storage, kw, width, xn, keep = binned_case(g, dev, arm, C, cap, rot, p,
+                                               pl)
+    ids = torch.arange(C * cap, dtype=torch.int32,
+                       device=dev).reshape(C, cap) * 7 + 3
+    sizes = torch.randint(0, cap + 1, (C,), generator=g, device=dev,
+                          dtype=torch.int32)
+    sizes[0], sizes[1], sizes[2] = 0, 5, cap
+    bl = torch.randint(0, C, (nb,), generator=g, device=dev,
+                       dtype=torch.int32)
+    bl[:3] = torch.tensor([0, 1, 2], device=dev)
+    bq = torch.randint(-1, m, (nb, G), generator=g, device=dev,
+                       dtype=torch.int32)
+    pad = width - rot
+    q = torch.nn.functional.pad(
+        torch.randn(m, rot, generator=g, device=dev) * 3, (0, pad))
+    kw.update(k=k, metric_kind=mk, compute_dtype=cd)
+    qa = None
+    if mk == L2:
+        if arm in ("f32", "bf16"):
+            qa = (q * q).sum(1)
+        else:
+            kw["centers"] = torch.nn.functional.pad(
+                torch.randn(C, rot, generator=g, device=dev), (0, pad))
+    return (storage, ids, sizes, bl, bq, q, qa, xn if mk == L2 else None,
+            keep if filt else None), kw
+
+
 def phase_small_parity_binned(dev) -> None:
     """Kernel 2's binned arms against their plain versions on every
     storage kind (f32, bf16, int8 rows with residual queries and per-list
@@ -582,31 +635,8 @@ def phase_small_parity_binned(dev) -> None:
             ("pq4", 384, 96, 96, 1, 30, L2, False, "bf16", "binned_deep"),
             ("pq4", 256, 96, 48, 2, 14, IP, True, "f32", "binned_deep"),
             ("pq4", 256, 96, 96, 1, 256, L2, False, "f32", "binned_deep")]:
-        storage, kw, width, xn, keep = binned_case(g, dev, arm, C, cap, rot,
-                                                   p, pl)
-        ids = torch.arange(C * cap, dtype=torch.int32,
-                           device=dev).reshape(C, cap) * 7 + 3
-        sizes = torch.randint(0, cap + 1, (C,), generator=g, device=dev,
-                              dtype=torch.int32)
-        sizes[0], sizes[1], sizes[2] = 0, 5, cap
-        bl = torch.randint(0, C, (nb,), generator=g, device=dev,
-                           dtype=torch.int32)
-        bl[:3] = torch.tensor([0, 1, 2], device=dev)
-        bq = torch.randint(-1, m, (nb, G), generator=g, device=dev,
-                           dtype=torch.int32)
-        pad = width - rot
-        q = torch.nn.functional.pad(
-            torch.randn(m, rot, generator=g, device=dev) * 3, (0, pad))
-        kw.update(k=k, metric_kind=mk, compute_dtype=cd)
-        qa = None
-        if mk == L2:
-            if arm in ("f32", "bf16"):
-                qa = (q * q).sum(1)
-            else:
-                kw["centers"] = torch.nn.functional.pad(
-                    torch.randn(C, rot, generator=g, device=dev), (0, pad))
-        args = (storage, ids, sizes, bl, bq, q, qa,
-                xn if mk == L2 else None, keep if filt else None)
+        args, kw = scan_case(g, dev, arm, cap, rot, p, pl, k, mk, filt, cd,
+                             C, nb, G, m)
         name = (f"ivf_list_scan_topk {ex} {arm} cap={cap} rot={rot}"
                 + (f" p={p}" if arm == "pq4" else "")
                 + f" k={k} metric={mk} keep={filt} {cd}")
@@ -624,6 +654,7 @@ def phase_small_parity_binned(dev) -> None:
     log("  bit for bit per storage kind (binned arm vs plain version): "
         + ", ".join(f"{arm} {sum(v)}/{len(v)}" for arm, v in
                     bit_exact.items()))
+    _, ids, sizes, bl, bq = args[:5]
     storage, kw, _, xn, _ = binned_case(g, dev, "f32", C, 128, 24)
     args = (storage, ids[:, :128].contiguous(), sizes.clamp_max(128), bl,
             bq, torch.randn(m, 24, generator=g, device=dev), None, None)
@@ -636,9 +667,126 @@ def phase_small_parity_binned(dev) -> None:
         else:
             raise SmokeFailure(f"ivf_list_scan_topk {ex} at cap 128 was "
                                "not refused")
-    if scan_route("auto", 10, 128, 0.95, dev) != ("kernel", "exact"):
+    route, arm = scan_route("auto", 10, 128, dev)
+    if (route, arm or ivf_scan.resolve_extract(10, 128, G, device=dev)) != \
+            ("kernel", "exact"):
         raise SmokeFailure("scan_route at cap 128 did not pick exact")
     log("  cap 128: both arms refused, 'auto' routes the exact kernel")
+
+
+def sorted_rows(d, i):
+    """Rows of a fold buffer in (distance, column) order, for ``compare``,
+    which reads ties off sorted rows."""
+    d2 = d.reshape(-1, d.shape[-1])
+    order = torch.sort(d2, dim=1, stable=True).indices
+    return d2.gather(1, order), i.reshape(d2.shape).gather(1, order)
+
+
+def phase_small_parity_fold(dev) -> None:
+    """Both fold kernels against their plain versions, unmerged buffers
+    bit for bit. Kernel 1: every metric, f32 and bf16 operands, R = 2, 3
+    and 4 (k = 10, 130, 200), each tile of ``FUSED_TOPK_TILES``, n off a
+    multiple of the tile, with and without a keep filter, on small-integer
+    rows and queries (their dots are exact in f32, so any difference is a
+    fault of the fold); then random rows, where the exact arm's sums may
+    round differently from the plain version's: bit for bit wherever the
+    exact arm is, else the merged top-k within tolerance. Kernel 2: every
+    storage kind and the pq4 kernel at R = 2 and 4, with an empty list,
+    one shorter than k, a keep filter, empty slots and duplicate rows,
+    under the same rule as the binned arms (``phase_small_parity_binned``)."""
+    from raft_tpu_torch import tuning
+    from raft_tpu_torch.neighbors.common import merge_topk
+    from raft_tpu_torch.ops import fused_topk, ivf_scan
+
+    log("parity (small, ragged): fold arms")
+    g = torch.Generator(device=dev).manual_seed(21)
+    n_equal = 0
+    for mk in (fused_topk.L2, fused_topk.IP, fused_topk.COSINE):
+        for qt in (F32, BF16):
+            for k, tile in zip((10, 130, 200), tuning.FUSED_TOPK_TILES):
+                m, n, d = 70, 3 * tile + 37, 40
+                q = torch.randint(-4, 5, (m, d), generator=g,
+                                  device=dev).float().to(qt)
+                x = torch.randint(-4, 5, (n, d), generator=g,
+                                  device=dev).float().to(qt)
+                keep = (torch.rand(n, generator=g, device=dev) < 0.7).int()
+                for kp in (None, keep):
+                    kw = dict(metric_kind=mk, keep=kp, tile_n=tile)
+                    kd, ki = fused_topk.fused_knn_fold(q, x, k, **kw)
+                    pd, pi = fused_topk.fused_knn_fold_plain(q, x, k, **kw)
+                    name = (f"fused_knn_topk fold m={m} n={n} k={k} tile="
+                            f"{tile} metric={mk} {str(qt)[6:]} keep="
+                            f"{kp is not None}")
+                    if kd.shape != pd.shape or not (
+                            torch.equal(kd, pd) and torch.equal(ki, pi)):
+                        raise SmokeFailure(f"{name}: the fold buffer is not "
+                                           "bit for bit its plain version's")
+                    n_equal += 1
+    for mk, qt, k, tile in ((fused_topk.L2, F32, 10, 512),
+                            (fused_topk.COSINE, BF16, 130, 1024),
+                            (fused_topk.IP, F32, 200, 2048)):
+        q = torch.randn(100, 64, generator=g, device=dev).to(qt)
+        x = torch.randn(5000, 64, generator=g, device=dev).to(qt)
+        kd, ki = fused_topk.fused_knn_fold(q, x, k, metric_kind=mk,
+                                           tile_n=tile)
+        pd, pi = fused_topk.fused_knn_fold_plain(q, x, k, metric_kind=mk,
+                                                 tile_n=tile)
+        ed = fused_topk.fused_knn_topk(q, x, k, metric_kind=mk)
+        ep = fused_topk.fused_knn_topk_plain(q, x, k, metric_kind=mk)
+        name = (f"fused_knn_topk fold random rows k={k} tile={tile} "
+                f"metric={mk} {str(qt)[6:]}")
+        same = torch.equal(kd, pd) and torch.equal(ki, pi)
+        if torch.equal(ed[0], ep[0]) and torch.equal(ed[1], ep[1]) and \
+                not same:
+            raise SmokeFailure(f"{name}: the exact arm is bit for bit its "
+                               "plain version's, the fold is not")
+        compare(name, *merge_topk(kd, ki, k), *merge_topk(pd, pi, k))
+        n_equal += same
+    log(f"  kernel 1: {n_equal} of {3 * 2 * 3 * 2 + 3} fold buffers equal "
+        "bit for bit (every integer case)")
+
+    C, nb, G, m = 12, 30, 256, 400
+    L2, IP = ivf_scan.L2, ivf_scan.IP
+    bit_exact = {}
+    for arm, cap, rot, p, pl, k, mk, filt, cd in [
+            ("f32", 256, 24, 0, 0, 10, L2, True, "f32"),
+            ("f32", 384, 128, 0, 0, 200, IP, False, "bf16"),
+            ("bf16", 384, 96, 0, 0, 100, L2, True, "bf16"),
+            ("bf16", 256, 64, 0, 0, 256, IP, True, "bf16"),
+            ("i8", 256, 40, 0, 0, 10, L2, True, "bf16"),
+            ("i8", 384, 96, 0, 0, 200, L2, False, "bf16"),
+            ("i4", 384, 96, 0, 0, 30, L2, True, "bf16"),
+            ("i4", 256, 40, 0, 0, 200, IP, False, "f32"),
+            ("bits", 256, 100, 0, 0, 13, L2, True, "bf16"),
+            ("bits", 384, 96, 0, 0, 256, L2, False, "bf16"),
+            ("pq4", 256, 24, 24, 1, 10, L2, True, "bf16"),
+            ("pq4", 384, 96, 96, 1, 200, L2, False, "bf16"),
+            ("pq4", 256, 96, 48, 2, 64, IP, True, "f32")]:
+        args, kw = scan_case(g, dev, arm, cap, rot, p, pl, k, mk, filt, cd,
+                             C, nb, G, m)
+        name = (f"ivf_list_scan_topk fold {arm} cap={cap} rot={rot}"
+                + (f" p={p}" if arm == "pq4" else "")
+                + f" k={k} metric={mk} keep={filt} {cd}")
+        ed, ei = ivf_scan.ivf_list_scan_topk(*args, **kw)
+        epd, epi = ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
+        exact_bits = torch.equal(ed, epd) and torch.equal(ei, epi)
+        kd, ki = ivf_scan.ivf_list_scan_topk(*args, extract="fold", **kw)
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(*args, extract="fold",
+                                                   **kw)
+        R = fused_topk.fold_depth(k)
+        if kd.shape != (nb, G, 128 * R) or kd.shape != pd.shape:
+            raise SmokeFailure(f"{name}: shapes {tuple(kd.shape)} vs "
+                               f"{tuple(pd.shape)}, want {(nb, G, 128 * R)}")
+        same = torch.equal(kd, pd) and torch.equal(ki, pi)
+        bit_exact.setdefault(arm, []).append(same)
+        if exact_bits and not same:
+            raise SmokeFailure(f"{name}: the exact arm is bit for bit its "
+                               "plain version's, the fold is not")
+        if not same:
+            compare(name, *sorted_rows(kd, ki), *sorted_rows(pd, pi))
+    log("  kernel 2, bit for bit per storage kind (fold vs plain version): "
+        + ", ".join(f"{arm} {sum(v)}/{len(v)}" for arm, v in
+                    bit_exact.items()))
 
 
 def compare_exact(name, outs_k, outs_p) -> None:
@@ -776,7 +924,7 @@ def phase_small_search(dev) -> None:
 def phase_small_cagra(dev) -> None:
     """A small CAGRA build on the card through the user's entry point,
     searched on the card (kernels) and, over the same graph, on the CPU
-    (plain versions): recall within 0.01 and most ids equal (one flipped
+    (plain versions, "pallas_interpret"): recall within 0.01 and most ids equal (one flipped
     near-tie changes the beam's path, so whole searches are compared by
     recall and overlap, not for equality)."""
     from raft_tpu_torch.neighbors import brute_force, cagra
@@ -790,7 +938,10 @@ def phase_small_cagra(dev) -> None:
     _, ki = cagra.search(sp, ix, q, 10)
     cpu_ix = cagra.from_graph(x.cpu(), ix.graph.cpu(), ix.metric,
                               device="cpu")
-    _, pi = cagra.search(sp, cpu_ix, q.cpu(), 10)
+    # on a CPU index "auto" is the scattered path (the reference's CPU
+    # route): the packed path's plain version is named
+    _, pi = cagra.search(dataclasses.replace(
+        sp, scan_impl="pallas_interpret"), cpu_ix, q.cpu(), 10)
     _, truth = brute_force.knn(q, x, 10, device=dev)
     rk, rp = recall_of(ki, truth), recall_of(pi.to(dev), truth)
     same = float((ki.cpu() == pi).float().mean())
@@ -960,14 +1111,16 @@ _ARM_SITE = {"": "raft_tpu/ops/ivf_scan.py:198",
              "pq4": "raft_tpu/ops/ivf_scan.py:221",
              "rabitq": "raft_tpu/ops/ivf_scan.py:256",
              "binned": "raft_tpu/ops/ivf_scan.py:89",
-             "binned_deep": "raft_tpu/ops/ivf_scan.py:123"}
+             "binned_deep": "raft_tpu/ops/ivf_scan.py:123",
+             "fold": "raft_tpu/ops/ivf_scan.py:169"}
 
 
 def scan_work(args, kw):
     """The least work of one kernel-2 call on this run's data: (bytes,
     operations, peak operations per second, what the operations are).
     Probed lists are read once (rows, ids, norms, row scales), queries,
-    list sidecars, bucket tables and outputs once; operations count the
+    list sidecars, bucket tables and outputs (k, or the fold's 128 R
+    slots, a query row) once; operations count the
     valid (query, row) pairs only: 2 d per pair on the dense, int8, i4 and
     sign-bit arms (bf16 tensor-core rate under bf16 operands, else f32),
     and on the pq4 arm p table adds per pair plus 2 pq_len per table entry
@@ -980,7 +1133,7 @@ def scan_work(args, kw):
     kind = ivf_scan.storage_kind(storage, kw.get("packed_i4", False),
                                  kw.get("packed_bits", False), pqc)
     C, cap, d = ivf_scan._geometry(storage, kind, pqc)
-    k = kw["k"]
+    w = ivf_scan.out_width(kw["k"], kw.get("extract") or "exact")
     sizes = list_sizes.long()
     valid_q = (bucket_q >= 0).sum(1).long()
     pairs = float((valid_q * sizes[bucket_list.long()]).sum())
@@ -998,7 +1151,7 @@ def scan_work(args, kw):
             + (pqc.numel() * 4 if pqc is not None else 0))
     bytes_ = (probed_rows * row_bytes + queries.shape[0] * d * 4
               + (queries.shape[0] * 4 if qaux is not None else 0) + side
-              + nb * 4 + nb * G * 4 + C * 4 + nb * G * k * 8)
+              + nb * 4 + nb * G * 4 + C * 4 + nb * G * w * 8)
     cd = kw.get("compute_dtype") or (
         "bf16" if queries.dtype == torch.bfloat16 else "f32")
     if kind == ivf_scan.PQ4:
@@ -1039,8 +1192,12 @@ def measure_ivf(args, kw, launches, arm: str = "",
 
     kd, ki = kern()
     pd, pi = plain()
-    err = compare(f"{name} (path shapes)", kd, ki, pd, pi)
     exact = torch.equal(kd, pd) and torch.equal(ki, pi)
+    if kw.get("extract") == "fold":
+        # the fold's rows are its unextracted slots, sorted for compare
+        kd, ki = sorted_rows(kd, ki)
+        pd, pi = sorted_rows(pd, pi)
+    err = compare(f"{name} (path shapes)", kd, ki, pd, pi)
     log(f"  {name}: kernel and plain version "
         f"{'equal bit for bit' if exact else 'differ within tolerance'}")
     del kd, ki, pd, pi
@@ -1202,6 +1359,196 @@ def measure_knn(args, kw, launches) -> dict:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms}
+
+
+def fast_bf_path(dev, x, q, truth, k=10) -> dict:
+    """The fast brute force (``brute_force.search(fast=True)``) on the main
+    path's rows and queries: bf16 candidates at k_cand = max(4k, k + 32)
+    = 42, refined exactly to k. Its default on the card is kernel 1's fold
+    at the analytic tile (``fused_fold:2048``, asserted from the launch
+    record, counts set to 0 just before the search and read just after);
+    the same call with ``impl="fused_exact"`` runs beside it. Recall@k of
+    both on the truth's queries, QPS (median of 5 batches), a profile of
+    one fold batch. Gate: the fold's recall no more than 0.01 under the
+    exact arm's (the fold's band, tests/test_pallas_parity.py:69-80)."""
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops import fused_topk
+
+    index = brute_force.build(x, device=dev)
+    captured = {}
+    orig = fused_topk.fused_knn_topk
+
+    def rec(*a, **kw):
+        impl = f"fused_{kw.get('variant', 'exact')}" + (
+            f":{kw['tile_n']}" if kw.get("tile_n") else "")
+        captured.setdefault(impl, (a, kw))
+        before = rec.launches
+        out = orig(*a, **kw)
+        rec.by_impl[impl] = rec.by_impl.get(impl, 0) + rec.launches - before
+        return out
+
+    rec.launches = 0
+    rec.by_impl = {}
+    fused_topk.fused_knn_topk = rec
+    try:
+        _, ids = brute_force.search(index, q, k, fast=True)
+        torch.cuda.synchronize()
+        launches = dict(rec.by_impl)
+        rec.by_impl.clear()
+        _, eids = brute_force.search(index, q, k, fast=True,
+                                     impl="fused_exact")
+        torch.cuda.synchronize()
+        exact_launches = dict(rec.by_impl)
+    finally:
+        fused_topk.fused_knn_topk = orig
+    log(f"fast brute force (SIFT-1M rows, {q.shape[0]} queries, k={k}): "
+        f"default launches {launches}, impl='fused_exact' launches "
+        f"{exact_launches}")
+    if launches != {"fused_fold:2048": 1}:
+        raise SmokeFailure(f"the default fast brute force took {launches}, "
+                           "not one launch of fused_fold:2048")
+    if exact_launches != {"fused_exact": 1}:
+        raise SmokeFailure(f"impl='fused_exact' took {exact_launches}")
+    n = truth.shape[0]
+    for out in (ids, eids):
+        if out.shape != (q.shape[0], k) or bool((out < 0).any()):
+            raise SmokeFailure("fast brute force returned missing neighbours")
+    rec_fold, rec_exact = recall_of(ids[:n], truth), recall_of(eids[:n],
+                                                                truth)
+    runs = {}
+    for name, impl in (("fold", "auto"), ("exact", "fused_exact")):
+        times = timed_batches(lambda: brute_force.search(
+            index, q, k, fast=True, impl=impl))
+        runs[name] = q.shape[0] / statistics.median(times)
+        log(f"  {name} ({impl}): {q.shape[0]} queries in "
+            f"{statistics.median(times) * 1e3:.2f} ms (median of 5) -> "
+            f"{runs[name]:.1f} QPS; batches ms "
+            f"{[round(t * 1e3, 3) for t in times]}")
+    log(f"  recall@{k} on {n} queries: fold {rec_fold:.4f}, exact arm "
+        f"{rec_exact:.4f}")
+    profile_search(lambda: brute_force.search(index, q, k, fast=True))
+    failed = []
+    if rec_fold < rec_exact - 0.01:
+        failed.append(f"fast brute force: fold recall {rec_fold:.4f} < exact"
+                      f" arm's {rec_exact:.4f} - 0.01")
+    del index
+    torch.cuda.empty_cache()
+    return {"captured": captured["fused_fold:2048"],
+            "launches": launches["fused_fold:2048"], "recall": rec_fold,
+            "exact_recall": rec_exact, "qps": runs["fold"],
+            "exact_qps": runs["exact"], "failed": failed}
+
+
+def measure_knn_fold(args, kw, launches) -> dict:
+    """Kernel 1's fold at the fast path's captured inputs: its unmerged
+    buffer against the plain version's (bit for bit, else -- where the
+    exact arm is not bit for bit either -- the merged top-k within
+    tolerance), time, stage split, plain time and bound. The bound's
+    bytes are the inputs read once plus the candidate buffer written
+    once; its operations 2 d a (query, row) pair at the operands' rate.
+    No single PyTorch call computes a fold (no library time)."""
+    from raft_tpu_torch.neighbors.common import merge_topk
+    from raft_tpu_torch.ops import fused_topk
+
+    queries, dataset, k = args[:3]
+    fkw = {key: v for key, v in kw.items() if key != "variant"}
+    log(f"kernel fused_knn_topk:fold at the fast path's shapes: queries "
+        f"{tuple(queries.shape)} {queries.dtype}, dataset "
+        f"{tuple(dataset.shape)} {dataset.dtype}, k={k}, tile_n="
+        f"{fkw['tile_n']}, R={fused_topk.fold_depth(k)}")
+    before = fused_topk.fused_knn_topk.launches
+
+    def kern():
+        return fused_topk.fused_knn_fold(*args, **fkw)
+
+    def plain():
+        return fused_topk.fused_knn_fold_plain(*args, **fkw)
+
+    kd, ki = kern()
+    pd, pi = plain()
+    exact = kd.shape == pd.shape and torch.equal(kd, pd) and \
+        torch.equal(ki, pi)
+    width = kd.shape[1]
+    if exact:
+        err = {"max_abs_err": 0.0}
+        log(f"  fused_knn_topk:fold: [{queries.shape[0]}, {width}] buffer "
+            "equal bit for bit to the plain version's")
+    else:
+        ed, ei = fused_topk.fused_knn_topk(*args, **dict(fkw, tile_n=None))
+        epd, epi = fused_topk.fused_knn_topk_plain(*args, **dict(
+            fkw, tile_n=None))
+        if torch.equal(ed, epd) and torch.equal(ei, epi):
+            raise SmokeFailure("fused_knn_topk:fold: the exact arm is bit for"
+                               " bit its plain version's, the fold is not")
+        err = compare("fused_knn_topk:fold (path shapes, merged)",
+                      *merge_topk(kd, ki, k), *merge_topk(pd, pi, k))
+    del kd, ki, pd, pi
+    torch.cuda.empty_cache()
+    ms = cuda_ms(kern, reps=5)
+    stage_split("fused_knn_topk:fold", kern, ms)
+    plain_ms = cuda_ms(plain, reps=1)
+    fused_topk.fused_knn_topk.launches = before     # measurement launches
+    torch.cuda.empty_cache()
+
+    m, d = queries.shape
+    n = dataset.shape[0]
+    bytes_ = (m * d * 4 + n * d * dataset.element_size() + n * 4 + m * 4
+              + m * width * 8)
+    flops = 2.0 * m * n * d
+    bf16 = torch.bfloat16 in (queries.dtype, dataset.dtype)
+    peak = H100_BF16_FLOPS if bf16 else H100_F32_FLOPS
+    t_bytes = bytes_ / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    log(f"  fused_knn_topk:fold: {ms:.3f} ms kernel, {plain_ms:.3f} ms "
+        f"plain; {flops / 1e9:.1f} GFLOP ({'bf16' if bf16 else 'f32'}), "
+        f"{bytes_ / 1e9:.3f} GB ({m * width * 8 / 1e9:.3f} GB of "
+        f"candidates) -> bound {max(t_bytes, t_ops):.3f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    return {"name": "fused_knn_topk:fold", "route": "cuda",
+            "source": "raft_tpu_torch/ops/csrc/fused_knn_topk.cu",
+            "replaces": "raft_tpu/ops/fused_topk.py:102",
+            "launches": launches, "max_abs_err": err["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def fold_table_searches(runs) -> list:
+    """Searches under a dispatch table that names kernel 2's fold: a table
+    written to a temporary file (backend "cuda", one ``ivf_scan_extract``
+    entry a search key {cap, k, g}, winner "fold", no times) is made the
+    active table, each ``(label, key, kwargs)`` of ``runs`` is run by
+    ``default_search`` (its arm recorded, which must be the fold), and the
+    default table path is restored."""
+    import os
+    import shutil
+    import tempfile
+
+    from raft_tpu_torch import tuning
+    from raft_tpu_torch.tuning.table import DispatchTable
+
+    tmp = tempfile.mkdtemp(prefix="fold_table_")
+    path = os.path.join(tmp, "cuda_fold.json")
+    DispatchTable({"version": 1, "backend": "cuda", "ops": {
+        "ivf_scan_extract": {"entries": [
+            {"key": key, "winner": "fold", "times_ms": {}}
+            for _, key, _ in runs]}}, "budgets": {}}).save(path)
+    out = []
+    tuning.set_table_path(path)
+    try:
+        for label, key, kw in runs:
+            log(f"fold table entry {key}:")
+            res = default_search(label, **kw)
+            if res["arm"] != "fold":
+                raise SmokeFailure(f"{label}: took {res['arm']} under the "
+                                   "fold table")
+            out.append(res)
+            torch.cuda.empty_cache()
+    finally:
+        tuning.set_table_path(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def cagra_path(dev, x, q, truth, k=10) -> dict:
@@ -1449,8 +1796,8 @@ def measure_beam(args, kw, launches) -> dict:
 def phase_small_ivf_pq(dev) -> None:
     """IVF-PQ built on the card through the user's entry point and
     searched there (kernel 2's int8 arm) and, over the same index, on the
-    CPU (its plain version): L2 and inner product, the exact arm and the
-    binned one. Both paths compute the same residual queries; the kernel
+    CPU (its plain version, "pallas_interpret"): L2 and inner product,
+    the exact arm and the binned one. Both paths compute the same residual queries; the kernel
     and the plain version sum the f32 products in other orders, so the
     tolerance is the module's."""
     from raft_tpu_torch.distance.types import DistanceType
@@ -1475,7 +1822,10 @@ def phase_small_ivf_pq(dev) -> None:
             if ivf_scan.ivf_list_scan_topk.launches != before + 1:
                 raise SmokeFailure("small IVF-PQ search did not launch "
                                    "kernel 2")
-            pd, pi = ivf_pq.search(sp, cpu_copy(ix), q.cpu(), 10)
+            # on a CPU index "auto" is the decode body (the reference's
+            # CPU route): the kernel's plain version is named
+            pd, pi = ivf_pq.search(dataclasses.replace(
+                sp, scan_impl="pallas_interpret"), cpu_copy(ix), q.cpu(), 10)
             compare(f"ivf_pq.search 20k x 96, 64 lists, {metric.name}, "
                     f"{what} arm", kd.cpu(), ki.cpu(), pd, pi)
 
@@ -1491,8 +1841,8 @@ def phase_small_ivf_pq_rungs(dev) -> None:
     """Each compressed cache rung built on the card through the user's
     entry points (``build(cache_dtype=...)``, ``attach_rabitq_cache``,
     ``attach_raw_residual_cache``), searched there (kernel 2's arm) and,
-    over the same index, on the CPU (its plain version), with the exact
-    and the binned extraction."""
+    over the same index, on the CPU (its plain version,
+    "pallas_interpret"), with the exact and the binned extraction."""
     from raft_tpu_torch.neighbors import ivf_pq
     from raft_tpu_torch.ops import ivf_scan
 
@@ -1526,7 +1876,8 @@ def phase_small_ivf_pq_rungs(dev) -> None:
             if ivf_scan.ivf_list_scan_topk.launches != before + 1:
                 raise SmokeFailure(f"small IVF-PQ {kind} search did not "
                                    "launch kernel 2")
-            pd, pi = ivf_pq.search(sp, cpu_ix, q.cpu(), 10)
+            pd, pi = ivf_pq.search(dataclasses.replace(
+                sp, scan_impl="pallas_interpret"), cpu_ix, q.cpu(), 10)
             compare(f"ivf_pq.search 20k x 96, 64 lists, {kind} cache, "
                     f"{what} arm", kd.cpu(), ki.cpu(), pd, pi)
 
@@ -1600,6 +1951,7 @@ def ivf_pq_path(dev, n=10_000_000, d=96, nq=10_000, n_lists=1024,
     (``local_recall_target=1.0``; recall, QPS, the kernel's launches, a
     profile); the refined search (3k candidates, exact refine to k)."""
     from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
+    from raft_tpu_torch.neighbors.ivf_flat import adaptive_query_group
     from raft_tpu_torch.ops import ivf_scan
 
     x = sift_like(n, d, seed=3, device=dev)
@@ -1691,11 +2043,26 @@ def ivf_pq_path(dev, n=10_000_000, d=96, nq=10_000, n_lists=1024,
                        k, rec, refine=lambda c: refine.refine(
                            x, q, c, k, device=dev), exact_refined=rrec,
                        refined_floor=REFINED_RECALL_FLOOR)]
+    # the same two searches under a table that names kernel 2's fold
+    group = adaptive_query_group(nq, n_probes, index.n_lists,
+                                 dsp.query_group)
+    folds = fold_table_searches([
+        ("int8 (IVF-PQ, DEEP-10M), fold table",
+         {"cap": cap, "k": k, "g": group},
+         dict(first=lambda: ivf_pq.search(dsp, index, q, k), q=q,
+              truth=truth, k=k, exact_recall=rec,
+              raw_floor=IVF_PQ_RECALL_FLOOR)),
+        ("int8 (IVF-PQ refined first stage), fold table",
+         {"cap": cap, "k": 3 * k, "g": group},
+         dict(first=lambda: ivf_pq.search(dsp, index, q, 3 * k), q=q,
+              truth=truth, k=k, exact_recall=rec,
+              refine=lambda c: refine.refine(x, q, c, k, device=dev),
+              exact_refined=rrec, refined_floor=REFINED_RECALL_FLOOR))])
     return {"captured": captured["scan"], "launches": launches,
             "build_s": build_s, "secs": secs, "recall": rec,
             "qps": nq / med, "refined_recall": rrec, "refined_qps": nq / rmed,
             "x": x, "q": q, "truth": truth, "index": index,
-            "defaults": defaults}
+            "defaults": defaults, "folds": folds}
 
 
 def ivf_pq_rungs_path(dev, x, q, truth, base, k=10, n_probes=128,
@@ -1946,6 +2313,24 @@ def graph_recall(x, graph, n_sample: int = 1000) -> float:
     return recall_of(graph[sample].long(), exact[:, 1:width + 1])
 
 
+def fold_flat(index, q, truth, exact_recall, n_probes=64, k=10) -> dict:
+    """The IVF-Flat main path's default search under a table that names
+    kernel 2's fold (``fold_table_searches``), held as the default search
+    is (within 0.05 of the exact run's recall, and 0.90)."""
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    sp = ivf_flat.SearchParams(n_probes=n_probes)
+    key = {"cap": int(index.storage.shape[1]), "k": k,
+           "g": ivf_flat.adaptive_query_group(q.shape[0], n_probes,
+                                              index.n_lists,
+                                              sp.query_group)}
+    return fold_table_searches([(
+        "IVF-Flat (SIFT-1M), fold table", key,
+        dict(first=lambda: ivf_flat.search(sp, index, q, k), q=q,
+             truth=truth, k=k, exact_recall=exact_recall,
+             floor=RECALL_FLOOR))])[0]
+
+
 def default_flat(index, q, truth, exact_recall, n_probes=64, k=10) -> dict:
     """The IVF-Flat main path's default search (the binned arm at k = 10)
     on its index, queries and truth (``default_search``), held to 0.90
@@ -1976,6 +2361,7 @@ def main() -> int:
         phase_build()
         phase_small_parity(dev)
         phase_small_parity_binned(dev)
+        phase_small_parity_fold(dev)
         phase_small_parity_graph(dev)
         phase_small_search(dev)
         phase_small_ivf_pq(dev)
@@ -1983,7 +2369,12 @@ def main() -> int:
         phase_small_cagra(dev)
         res = main_path(dev)
         x, q, truth = res.pop("x"), res.pop("q"), res.pop("truth")
-        fres = default_flat(res.pop("index"), q, truth, res["recall"])
+        index = res.pop("index")
+        fres = default_flat(index, q, truth, res["recall"])
+        flat_fold = fold_flat(index, q, truth, res["recall"])
+        del index
+        bres = fast_bf_path(dev, x, q, truth)
+        fold_row = measure_knn_fold(*bres.pop("captured"), bres["launches"])
         cres = cagra_path(dev, x, q, truth)
         pres = cagra_ivf_pq_path(dev, x, q, truth)
         del x, q, truth
@@ -2019,6 +2410,11 @@ def main() -> int:
                                    f"{arm}")
             kernels.append(dict(run["kernel"],
                                 name=f"ivf_list_scan_topk:{arm}"))
+        # the fold arms: kernel 1's from the default fast brute force,
+        # kernel 2's from the IVF-Flat search under the fold table
+        kernels.append(fold_row)
+        kernels.append(dict(flat_fold["kernel"],
+                            name="ivf_list_scan_topk:fold"))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2032,9 +2428,14 @@ def main() -> int:
         f"{dres['qps']:.1f}, recall@10 {dres['recall']:.4f}; refined QPS "
         f"{dres['refined_qps']:.1f}, recall@10 {dres['refined_recall']:.4f}; "
         f"total {time.perf_counter() - t_start:.1f} s")
-    failed = rres.pop("failed")
-    defaults = [fres] + dres["defaults"] + [r["default"] for r in
-                                             rres.values()]
+    log(f"fast brute force (SIFT-1M, k_cand 42): default (fused_fold:2048)"
+        f" QPS {bres['qps']:.1f}, recall@10 {bres['recall']:.4f}; "
+        f"impl='fused_exact' QPS {bres['exact_qps']:.1f}, recall@10 "
+        f"{bres['exact_recall']:.4f}")
+    failed = rres.pop("failed") + bres["failed"]
+    defaults = ([fres] + dres["defaults"] + [r["default"] for r in
+                                              rres.values()]
+                + [flat_fold] + dres["folds"])
     for d in defaults:
         failed += d["failed"]
         k = d["kernel"]

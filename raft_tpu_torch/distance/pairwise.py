@@ -11,6 +11,8 @@ reference formulas exactly.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from raft_tpu_torch.core.resources import as_tensor, resolve_device
@@ -35,8 +37,12 @@ _BLOCK_ELEMS = (32 * 1024 * 1024) // 4
 
 
 def pairwise_distance(x, y, metric="euclidean", metric_arg: float = 2.0,
+                      tile_m: Optional[int] = None,
+                      tile_n: Optional[int] = None,
                       device=None) -> torch.Tensor:
-    """The full [m, n] distance matrix between rows of x and y (f32)."""
+    """The full [m, n] distance matrix between rows of x and y (f32).
+    ``tile_m`` / ``tile_n`` are accepted for the reference's signature;
+    the row blocks size themselves (``_BLOCK_ELEMS``)."""
     metric = resolve_metric(metric)
     dev = resolve_device(device)
     x = as_tensor(x, dev)

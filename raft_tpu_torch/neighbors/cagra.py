@@ -12,8 +12,9 @@ index fields, packed inline layout and index files.
   — the reference's semantics, computed here with a sorted-list
   membership test instead of the reference's cube of comparisons), and
   packs the inline search layout.
-* **Search** with the packed layout (the default whenever the index
-  carries ``nbr_pack``): seeds from a query-shared slab scored by one f32
+* **Search** with the packed layout (the default on the card whenever
+  the index carries ``nbr_pack``; on the CPU, as in the reference off its
+  accelerator, the default is the scattered path): seeds from a query-shared slab scored by one f32
   matmul of bf16 operands, then ``iters`` beam steps (``ops/beam_step``:
   the CUDA kernel on the card, its plain version on the CPU), then an
   exact f32 rescore of the buffer's first R rows. Without the layout, or
@@ -23,8 +24,9 @@ index fields, packed inline layout and index files.
 * **Filtered search** accumulates filter-passing candidates beside the
   unfiltered traversal, as the reference does.
 
-Per-query state is row-major [m, L]. The port has no ``obs`` spans and no
-tuning table; ``serialize_to_hnswlib`` is not ported (ROADMAP.md).
+Per-query state is row-major [m, L]. The port has no ``obs`` spans, and
+CAGRA's table-driven choices (the beam tile) stay analytic;
+``serialize_to_hnswlib`` is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -104,8 +106,8 @@ class SearchParams:
     compute_dtype: str = "auto"
     # seeds scored per query (0 = max(2 * itopk, 128))
     n_seeds: int = 0
-    # "auto" = "packed" when the index carries nbr_pack and
-    # compute_dtype is "auto", else "scattered"; the reference's names
+    # "auto" = "packed" when the index is on the card, carries nbr_pack
+    # and compute_dtype is "auto", else "scattered"; the reference's names
     # force a route: "pallas" (packed, the kernel), "pallas_interpret"
     # (packed, the kernel's plain version), "xla" (scattered); the port's
     # own "packed" / "scattered" are accepted too
@@ -717,7 +719,9 @@ def _resolve_beam_impl(requested: str, index: Index,
         return _BEAM_IMPLS[name]
     if index.nbr_pack is None or compute_dtype != "auto":
         return "scattered"
-    return "packed"
+    # the packed traversal is the reference's TPU route; off its
+    # accelerator it takes the scattered path, and so does a CPU index here
+    return "packed" if index.dataset.is_cuda else "scattered"
 
 
 def search_plan(search_params: SearchParams, k: int):

@@ -9,7 +9,7 @@ partial-reduce op with no counterpart here; every merge is exact — as the
 reference's is off the TPU, where ``approx_min_k`` returns the exact
 top-k. :func:`backend_route` maps the reference's backend names
 (``join_impl``) onto the port's two routes; :func:`scan_route` does so for
-the IVF list scans, with their extraction arm.
+the IVF list scans.
 """
 
 from __future__ import annotations
@@ -125,55 +125,44 @@ def backend_route(requested: str, what: str = "join_impl") -> str:
 
 
 def scan_route(requested: str, kl: int, cap: int,
-               local_recall_target: float, device) -> Tuple[str, str]:
+               device) -> Tuple[str, Optional[str]]:
     """(route, extraction arm) of an IVF list scan, as the reference routes
-    ``scan_impl`` (``ivf_flat._resolve_scan_impl``, ``ivf_scan.py:421-441``)
-    for ``kl`` = min(k, cap) candidates a list of capacity ``cap`` on an
-    index on ``device``. The route is ``"kernel"`` (the CUDA kernel) or
-    ``"plain"`` (its plain version); the arm is the reference's analytic
-    pick below a ``local_recall_target`` of 1 (``ops.ivf_scan.pick_extract``),
-    else "exact":
+    ``scan_impl`` (``ivf_flat._resolve_scan_impl``) for ``kl`` = min(k,
+    cap) candidates a list of capacity ``cap`` on an index on ``device``.
+    The route is ``"kernel"`` (the CUDA kernel) or ``"plain"`` (its plain
+    version); the arm is "exact", or None where the reference runs its
+    kernel, which picks the arm itself once the query group is known
+    (``ops.ivf_scan.resolve_extract``: the dispatch table, else the
+    analytic pick at the search's ``local_recall_target``):
 
     * "xla": plain, exact;
-    * "pallas_interpret": plain, the pick (the reference's interpreted
-      kernel takes it too);
-    * "pallas[:tile]": the kernel with the pick on a CUDA index, plain with
-      the pick on the CPU; past the kernel's ``K_MAX`` (256) it raises;
-    * "auto": on a CUDA index the kernel, with the pick where ``kl`` <= 64
+    * "pallas_interpret": plain, the kernel's arm;
+    * "pallas[:tile]": the kernel with its arm on a CUDA index, plain with
+      it on the CPU; past the kernel's ``K_MAX`` (256) it raises;
+    * "auto": on a CUDA index the kernel, with its arm where ``kl`` <= 64
       and the cap is a multiple of 128 (where the reference's accelerator
       takes its kernel), exact up to ``K_MAX``, and the exact plain scan
       past it; on the CPU plain, exact (the reference's CPU route)."""
-    from raft_tpu_torch.ops.ivf_scan import K_MAX, pick_extract
+    from raft_tpu_torch.ops.ivf_scan import K_MAX
 
     name = backend_name(requested)
-    rt = float(local_recall_target)
-    arm = pick_extract(kl, cap, rt < 1.0, rt)
     cuda = torch.device(device).type == "cuda"
     if name == "xla":
         return "plain", "exact"
     if name == "pallas_interpret":
-        return "plain", arm
+        return "plain", None
     if name == "pallas":
         if kl > K_MAX:
             raise ValueError(
                 f"scan_impl={requested!r} keeps at most {K_MAX} candidates "
                 f"per list, fewer than min(k, cap)={kl}; use scan_impl="
                 "'auto' or 'xla' for the exact scan")
-        return ("kernel" if cuda else "plain"), arm
+        return ("kernel" if cuda else "plain"), None
     if not cuda or kl > K_MAX:
         return "plain", "exact"
     if kl <= 64 and cap % 128 == 0:
-        return "kernel", arm
+        return "kernel", None
     return "kernel", "exact"
-
-
-def approx_arm_not_ported(what: str):
-    """The error for a caller that forces an approximate arm by name that
-    is not ported yet: the fold arms."""
-    return NotImplementedError(
-        f"{what}: the fold extraction arms (kernel 1's and kernel 2's) are "
-        "not ported yet (ROADMAP.md, Queue B item 2); the exact arm serves "
-        "every other request")
 
 
 def sentinel_for(metric: DistanceType) -> float:

@@ -16,11 +16,14 @@ padding). Search is the reference's five steps:
 
 Scan routes (``SearchParams.scan_impl``, the reference's names, through
 ``neighbors.common.scan_route``): each list keeps ``min(k, cap)``
-candidates, as the reference's does, and below a ``local_recall_target``
-of 1 the scan takes the reference's binned extraction arm where it is
-eligible (``ops.ivf_scan.pick_extract``: "binned" to k = 13 at the default
-0.95, else "binned_deep" to k = 256, on caps that are multiples of 128
-over 128). "xla" runs the plain version, exact; "pallas_interpret" the
+candidates, as the reference's does, and where the reference runs its
+kernel the scan takes the kernel's extraction arm
+(``ops.ivf_scan.resolve_extract``): the dispatch table's
+``ivf_scan_extract`` winner (the only way to the "fold" arm, whose
+128 R-wide candidate rows the merge takes at their width), else below a
+``local_recall_target`` of 1 the analytic pick ("binned" to k = 13 at the
+default 0.95, else "binned_deep" to k = 256, on caps that are multiples of
+128 over 128). "xla" runs the plain version, exact; "pallas_interpret" the
 plain version with that arm; "pallas" the kernel with that arm (the plain
 version on the CPU), raising past the kernel's 256; "auto" on the card the
 kernel, with the arm where ``min(k, cap)`` <= 64 and the cap is
@@ -79,6 +82,7 @@ class IndexParams:
     kmeans_trainset_fraction: float = 0.5
     adaptive_centers: bool = False
     add_data_on_build: bool = True
+    conservative_memory_allocation: bool = False  # the reference's; no-op
     kmeans_compute_dtype: str = "f32"
     storage_dtype: str = "f32"
 
@@ -397,9 +401,13 @@ def unbucketize_merge(cand_d: torch.Tensor, cand_i: torch.Tensor,
                       pair_bucket: torch.Tensor, pair_pos: torch.Tensor,
                       order: torch.Tensor, total: int, m: int, n_probes: int,
                       kl: int, k: int, select_min: bool):
-    """Map per-bucket top-kl candidates back to query-major order (one
-    composed row gather) and merge each query's n_probes x kl candidates
-    into the final top-k."""
+    """Map per-bucket candidates back to query-major order (one composed
+    row gather) and merge each query's n_probes x kl candidates into the
+    final top-k. ``kl`` is the candidates' width ``cand_d.shape[2]``:
+    min(k, cap), or 128 R from the fold arm."""
+    if cand_d.shape[2] != kl:
+        raise ValueError(f"kl={kl} is not the candidates' width "
+                         f"{cand_d.shape[2]}")
     group = cand_d.shape[1]
     dev = cand_d.device
     flat_slot = pair_bucket.long() * group + pair_pos.long()
@@ -419,7 +427,8 @@ def _ivf_search(queries: torch.Tensor, centers: torch.Tensor,
                 filter_nbits: int, compute_dtype: str = "bf16",
                 data_norms: Optional[torch.Tensor] = None,
                 filter_bits: Optional[torch.Tensor] = None,
-                route: str = "kernel", extract: str = "exact"):
+                route: str = "kernel", extract: Optional[str] = "exact",
+                local_recall_target: float = 1.0):
     metric = DistanceType(metric_val)
     select_min = is_min_close(metric)
     C, cap, d = storage.shape
@@ -436,8 +445,13 @@ def _ivf_search(queries: torch.Tensor, centers: torch.Tensor,
 
     # scan: one (query group x list) step per bucket; per-list top-k cannot
     # exceed the capacity, the merge over n_probes lists restores k (the
-    # route and the extraction arm are scan_route's)
+    # route is scan_route's, and so is the arm unless the kernel picks it
+    # at this query group)
     kl = min(k, cap)
+    if extract is None:
+        rt = float(local_recall_target)
+        extract = ivf_scan.resolve_extract(kl, cap, group, rt < 1.0, rt,
+                                           q32.device)
     scan = (ivf_scan.ivf_list_scan_topk if route == "kernel"
             else ivf_scan.ivf_list_scan_topk_plain)
     if metric == DistanceType.InnerProduct:
@@ -460,8 +474,8 @@ def _ivf_search(queries: torch.Tensor, centers: torch.Tensor,
     cand_d = -out_d if metric == DistanceType.InnerProduct else out_d
     cand_d = torch.where(torch.isinf(out_d), sentinel, cand_d)
     out_d, out_i = unbucketize_merge(
-        cand_d, cand_i, pair_bucket, pair_pos, order, total, m, n_probes, kl,
-        k, select_min)
+        cand_d, cand_i, pair_bucket, pair_pos, order, total, m, n_probes,
+        int(cand_d.shape[2]), k, select_min)
     out_i = torch.where(out_d == sentinel, -1, out_i)
     if metric == DistanceType.L2SqrtExpanded:
         out_d = torch.sqrt(torch.clamp_min(out_d, 0.0))
@@ -483,9 +497,8 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
     if k > n_probes * cap:
         raise ValueError(
             f"k={k} exceeds n_probes*list_capacity={n_probes * cap}")
-    route, extract = scan_route(
-        search_params.scan_impl, min(k, cap), cap,
-        search_params.local_recall_target, dev)
+    route, extract = scan_route(search_params.scan_impl, min(k, cap), cap,
+                                dev)
     if str(search_params.compute_dtype) not in _DTYPES:
         raise ValueError(f"compute_dtype must be f32|bf16, got "
                          f"{search_params.compute_dtype!r}")
@@ -499,7 +512,8 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
         int(search_params.bucket_batch),
         0 if bits is None else int(bits.n_bits),
         str(search_params.compute_dtype), index.data_norms,
-        None if bits is None else bits.bits.to(dev), route, extract)
+        None if bits is None else bits.bits.to(dev), route, extract,
+        float(search_params.local_recall_target))
 
 
 # ---------------------------------------------------------------------------

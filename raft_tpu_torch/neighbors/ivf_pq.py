@@ -55,12 +55,15 @@ parameters, its index fields and its index files.
   exact, as the reference's XLA body is; so does every search without
   the cache or whose ``lut_dtype`` forbids it. The others take the cache
   scan, routed as IVF-Flat's (``neighbors.common.scan_route``): each list
-  keeps ``min(k, cap)`` candidates, and below a ``local_recall_target``
-  of 1 the reference's binned extraction arm where it is eligible —
+  keeps ``min(k, cap)`` candidates, and where the reference runs its
+  kernel the kernel's extraction arm (the dispatch table's
+  ``ivf_scan_extract`` winner, "fold" included, else below a
+  ``local_recall_target`` of 1 the binned arm where it is eligible) —
   "pallas_interpret" the plain version with it, "pallas" the kernel with
   it, "auto" on the card the kernel with it where ``min(k, cap)`` <= 64
   and the cap is 128-aligned, exact otherwise (the plain version past
-  256), and on the CPU the exact plain version. ``merge_recall_target``
+  256), and on the CPU the decode scan, exact (the reference's "auto"
+  takes its XLA body off the accelerator). ``merge_recall_target``
   is accepted at any value and the merge is exact, as the reference's is
   off the TPU (``lax.approx_min_k`` returns the exact top-k there).
   ``coarse_margins`` (:2339) is IVF-Flat's, which reads only the centers.
@@ -954,12 +957,13 @@ def _norm_dtype_knob(v) -> str:
 
 
 def _scan_route(requested: str, use_cache: bool, kl: int, cap: int,
-                local_recall_target: float, device) -> Tuple[str, str]:
+                device) -> Tuple[str, Optional[str]]:
     """(route, extraction arm) for a ``scan_impl`` name: route "kernel" |
     "cache_plain" | "decode". The cache scan takes :func:`scan_route`'s
-    kernel or plain route and arm; "xla", and every search without the
-    cache, scores in the decode body, exactly, as the reference's XLA body
-    does."""
+    kernel or plain route and arm (None: the kernel's own pick at the
+    query group); "xla", "auto" on a CPU index, and every search without
+    the cache score in the decode body, exactly, as the reference's XLA
+    body does."""
     name = backend_name(requested)
     if not use_cache:
         if name.startswith("pallas"):
@@ -968,9 +972,12 @@ def _scan_route(requested: str, use_cache: bool, kl: int, cap: int,
                 "(build with cache_decoded=True and keep lut_dtype='auto'/"
                 "'i8')")
         return "decode", "exact"
-    if name == "xla":
+    if name == "xla" or (name == "auto" and
+                         torch.device(device).type != "cuda"):
+        # the reference's CPU route ("auto" resolves to its XLA body off
+        # the accelerator)
         return "decode", "exact"
-    route, arm = scan_route(requested, kl, cap, local_recall_target, device)
+    route, arm = scan_route(requested, kl, cap, device)
     return ("kernel" if route == "kernel" else "cache_plain"), arm
 
 
@@ -978,7 +985,8 @@ def _cache_scan(index: Index, q_rot: torch.Tensor, bucket_list, bucket_q,
                 kl: int, keep, compute_dtype: str, plain: bool,
                 extract: str = "exact"):
     """Kernel 2 over the index's cache with residual queries: (candidate
-    distances [nb, G, kl] in the metric's own space, ids). The query
+    distances [nb, G, kl] in the metric's own space, 128 R wide from the
+    fold arm, ids). The query
     scale is the per-list ``cache_scales`` where the cache has them, 1
     for pq4 and RaBitQ, else ``recon_scale``; the packed caches take
     their arm, RaBitQ with the queries zero-padded to its word width;
@@ -1121,7 +1129,8 @@ def _decode_scan(index: Index, q_rot: torch.Tensor, bucket_list, bucket_q,
 def _pq_search(index: Index, queries: torch.Tensor, k: int, n_probes: int,
                group: int, bucket_batch: int, filter_bits,
                filter_nbits: int, compute_dtype: str, lut: str,
-               internal: str, route: str, extract: str = "exact"):
+               internal: str, route: str, extract: Optional[str] = "exact",
+               local_recall_target: float = 1.0):
     metric = index.metric
     select_min = is_min_close(metric)
     C, cap = index.indices.shape
@@ -1138,6 +1147,10 @@ def _pq_search(index: Index, queries: torch.Tensor, k: int, n_probes: int,
     # lut_dtype lowers the decode precision below the compute dtype
     bf16 = compute_dtype == "bf16" or lut == "bf16"
     if route in ("kernel", "cache_plain"):
+        if extract is None:
+            rt = float(local_recall_target)
+            extract = ivf_scan.resolve_extract(kl, cap, group, rt < 1.0, rt,
+                                               q32.device)
         keep = None
         if filter_bits is not None:
             keep = filter_keep(filter_bits, filter_nbits,
@@ -1153,7 +1166,7 @@ def _pq_search(index: Index, queries: torch.Tensor, k: int, n_probes: int,
             internal, bucket_batch)
     out_d, out_i = unbucketize_merge(
         cand_d, cand_i, pair_bucket, pair_pos, order, total, m, n_probes,
-        kl, k, select_min)
+        int(cand_d.shape[2]), k, select_min)
     # fewer than k valid candidates: the id is -1 (refine would otherwise
     # re-score filtered-out ids back into the top-k)
     out_i = torch.where(out_d == sentinel, -1, out_i)
@@ -1193,8 +1206,7 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
             "lut_dtype='i8' needs the decoded-residual cache; build with "
             "cache_decoded=True (and within _CACHE_BUDGET)")
     route, extract = _scan_route(
-        str(search_params.scan_impl), use_cache, min(int(k), cap), cap,
-        search_params.local_recall_target, dev)
+        str(search_params.scan_impl), use_cache, min(int(k), cap), cap, dev)
     # the decode scan reads the codes unless it reads an i8 / i4 / RaBitQ
     # cache's rows instead
     if route == "decode" and index.codes.shape[-1] == 0 and not (
@@ -1208,7 +1220,8 @@ def search(search_params: SearchParams, index: Index, queries, k: int,
         int(search_params.bucket_batch),
         None if bits is None else bits.bits.to(dev),
         0 if bits is None else int(bits.n_bits),
-        str(search_params.compute_dtype), lut, internal, route, extract)
+        str(search_params.compute_dtype), lut, internal, route, extract,
+        float(search_params.local_recall_target))
 
 
 # ---------------------------------------------------------------------------

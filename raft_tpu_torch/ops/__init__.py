@@ -3,12 +3,12 @@ PyTorch version in the same module:
 
     fused_topk.fused_knn_topk      brute-force distance + top-k
                                    (replaces raft_tpu/ops/fused_topk.py
-                                   _fused_kernel, exact arm)
+                                   _fused_kernel, exact and fold arms)
     ivf_scan.ivf_list_scan_topk    IVF list scan + per-list top-k
                                    (replaces raft_tpu/ops/ivf_scan.py
                                    _scan_kernel: float, int8 and packed
-                                   storage; exact, binned and
-                                   binned_deep extraction)
+                                   storage; exact, binned, binned_deep
+                                   and fold extraction)
     graph_join.graph_local_join    nn-descent local join: score + unique
                                    top-K merge (replaces raft_tpu/ops/
                                    graph_join.py _join_kernel)

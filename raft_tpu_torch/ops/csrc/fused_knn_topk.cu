@@ -18,11 +18,26 @@
 // widened exactly; round_ops (bf16 queries, which arrive as exact bf16
 // values in f32) rounds f32 rows to bf16, without it f32 queries meet the
 // rows unrounded (f32 x bf16).
+//
+// The fold arm (EXTRACT = kFold2..kFold4; raft_tpu/ops/fused_topk.py:102,
+// _extract_fold over fold_lane_stacks :76): a block's row chunk is one
+// row tile of the reference (tile_n rows, a multiple of 128), and instead
+// of top-k lists each query keeps the shared core's R-deep bins, a
+// column's bin being its offset from the tile's start mod 128 (the
+// reference's lane) and its chunk that offset / 128 (so the chunk stays
+// under 16 even at tile_n = 2048, far inside its 16 bits). After the scan
+// every slot is written out unextracted: slot (r, lane) of tile ch at
+// column ch * 128 R + r * 128 + lane of the [m, n_chunks * 128 R] buffer,
+// id -1 where +inf, which the caller merges exactly. Bound: the exact
+// arm's operations, plus the candidate write (m * n_chunks * 128 R * 8 B).
+// Its bins take 96 KB (R = 2) to 192 KB (R = 4) of shared memory beside
+// the 35.3 KB of tiles, so one block runs on an SM; the exact arm's
+// instantiations compile as they did before the fold.
 #include "scan_topk.cuh"
 
 using namespace rtt;
 
-template <typename T>
+template <typename T, int EXTRACT = kExact>
 __global__ void __launch_bounds__(NTHREADS)
 fused_knn_topk_kernel(const float* __restrict__ queries,
                       const float* __restrict__ qaux,
@@ -35,7 +50,10 @@ fused_knn_topk_kernel(const float* __restrict__ queries,
   __shared__ Tiles t;
   extern __shared__ __align__(16) unsigned char dyn[];
   float* topd = reinterpret_cast<float*>(dyn);
-  int* topp = reinterpret_cast<int*>(topd + QT * k);
+  // the top-k lists (exact) or the bins' distances, then positions or
+  // chunks
+  int* topp = reinterpret_cast<int*>(
+      topd + QT * (EXTRACT == kExact ? k : bin_depth(EXTRACT) * NBINS));
 
   const int qt = blockIdx.x % n_qtiles;
   const int ch = blockIdx.x / n_qtiles;
@@ -48,52 +66,97 @@ fused_knn_topk_kernel(const float* __restrict__ queries,
   const int p_begin = ch * chunk_rows;
   const int p_end = min(n, p_begin + chunk_rows);
   __syncthreads();
-  scan_topk<T, false>(t, topd, topp, queries, nullptr, 1.f, x, norms, keep,
-                      p_begin, p_end, d, k, metric, round_ops != 0);
+  scan_topk<T, false, kRowsDense, false, EXTRACT>(
+      t, topd, topp, queries, nullptr, 1.f, x, norms, keep, p_begin, p_end,
+      d, k, metric, round_ops != 0);
   __syncthreads();
 
-  const size_t width = (size_t)n_chunks * k;
-  for (int e = threadIdx.x; e < QT * k; e += NTHREADS) {
-    const int q = q0 + e / k;
-    if (q >= m) continue;
-    const size_t o = (size_t)q * width + (size_t)ch * k + e % k;
-    const float dv = topd[e];
-    out_d[o] = dv;
-    out_i[o] = isinf(dv) ? -1 : topp[e];
+  if constexpr (EXTRACT == kExact) {
+    const size_t width = (size_t)n_chunks * k;
+    for (int e = threadIdx.x; e < QT * k; e += NTHREADS) {
+      const int q = q0 + e / k;
+      if (q >= m) continue;
+      const size_t o = (size_t)q * width + (size_t)ch * k + e % k;
+      const float dv = topd[e];
+      out_d[o] = dv;
+      out_i[o] = isinf(dv) ? -1 : topp[e];
+    }
+  } else {
+    // every slot of the block's queries: bin b's level r of query qq is
+    // topd[qq * W + r * NBINS + b], its column p_begin + 128 chunk + b
+    constexpr int W = bin_depth(EXTRACT) * NBINS;
+    const uint16_t* sc = reinterpret_cast<const uint16_t*>(topp);
+    const size_t width = (size_t)n_chunks * W;
+    for (int e = threadIdx.x; e < QT * W; e += NTHREADS) {
+      const int q = q0 + e / W;
+      if (q >= m) continue;
+      const int s = e % W;
+      const size_t o = (size_t)q * width + (size_t)ch * W + s;
+      const float dv = topd[e];
+      out_d[o] = dv;
+      out_i[o] = isinf(dv) ? -1
+                           : p_begin + NBINS * sc[e] + (s & (NBINS - 1));
+    }
   }
+}
+
+template <typename T, int EXTRACT>
+static int launch_as(const float* queries, const float* qaux, const T* x,
+                     const float* norms, const int* keep, int m, int n,
+                     int d, int k, int chunk_rows, int n_chunks, int metric,
+                     int round_ops, float* out_d, int* out_i,
+                     cudaStream_t stream) {
+  const int n_qtiles = (m + QT - 1) / QT;
+  const size_t smem = topk_smem_bytes(k, EXTRACT);
+  auto kernel = fused_knn_topk_kernel<T, EXTRACT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  kernel<<<n_qtiles * n_chunks, NTHREADS, smem, stream>>>(
+      queries, qaux, x, norms, keep, m, n, d, k, chunk_rows, n_chunks,
+      n_qtiles, metric, round_ops, out_d, out_i);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch(const float* queries, const float* qaux, const T* x,
                   const float* norms, const int* keep, int m, int n, int d,
                   int k, int chunk_rows, int n_chunks, int metric,
-                  int round_ops, float* out_d, int* out_i,
+                  int round_ops, int fold_r, float* out_d, int* out_i,
                   cudaStream_t stream) {
-  const int n_qtiles = (m + QT - 1) / QT;
-  const size_t smem = topk_smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_knn_topk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_knn_topk_kernel<T><<<n_qtiles * n_chunks, NTHREADS, smem, stream>>>(
-      queries, qaux, x, norms, keep, m, n, d, k, chunk_rows, n_chunks,
-      n_qtiles, metric, round_ops, out_d, out_i);
-  return (int)cudaGetLastError();
+#define RTT_ARM(EXTRACT)                                                      \
+  launch_as<T, EXTRACT>(queries, qaux, x, norms, keep, m, n, d, k,            \
+                        chunk_rows, n_chunks, metric, round_ops, out_d,       \
+                        out_i, stream)
+  if (fold_r == 2) return RTT_ARM(kFold2);
+  if (fold_r == 3) return RTT_ARM(kFold3);
+  if (fold_r == 4) return RTT_ARM(kFold4);
+  return RTT_ARM(kExact);
+#undef RTT_ARM
 }
 
 // queries [m, d] f32; qaux [m] f32 (null for IP); x [n, d] f32 or bf16
 // (x_bf16); norms [n] f32 (null for IP); keep [n] int32 or null;
 // round_ops: the queries hold bf16 values and f32 rows are rounded to
-// bf16; out_d / out_i
-// [m, n_chunks * k]. Returns a cudaError_t code.
+// bf16; fold_r 0 for the exact arm, else the fold's depth R (2-4), with
+// chunk_rows the row tile (a multiple of 128); out_d / out_i
+// [m, n_chunks * k] (exact) or [m, n_chunks * 128 R] (fold). Returns a
+// cudaError_t code.
 extern "C" int fused_knn_topk(const void* queries, const void* qaux,
                               const void* x, int x_bf16, const void* norms,
                               const void* keep, int m, int n, int d, int k,
                               int chunk_rows, int n_chunks, int metric,
-                              int round_ops, void* out_d, void* out_i,
-                              void* stream) {
+                              int round_ops, int fold_r, void* out_d,
+                              void* out_i, void* stream) {
   if (k < 1 || k > KMAX || m < 1 || n < 1 || d < 1 || chunk_rows < 1 ||
       n_chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  if (fold_r != 0 &&
+      (fold_r < 2 || fold_r > 4 || chunk_rows % NBINS != 0 ||
+       chunk_rows / NBINS > 65536))
     return (int)cudaErrorInvalidValue;
   const auto* q = static_cast<const float*>(queries);
   const auto* qa = static_cast<const float*>(qaux);
@@ -104,7 +167,8 @@ extern "C" int fused_knn_topk(const void* queries, const void* qaux,
   auto s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     return launch(q, qa, static_cast<const __nv_bfloat16*>(x), xn, kp, m, n,
-                  d, k, chunk_rows, n_chunks, metric, round_ops, od, oi, s);
+                  d, k, chunk_rows, n_chunks, metric, round_ops, fold_r, od,
+                  oi, s);
   return launch(q, qa, static_cast<const float*>(x), xn, kp, m, n, d, k,
-                chunk_rows, n_chunks, metric, round_ops, od, oi, s);
+                chunk_rows, n_chunks, metric, round_ops, fold_r, od, oi, s);
 }

@@ -52,8 +52,9 @@
 // cores, plus 2 * pq_len per table entry; chip_smoke.py counts both.
 //
 // Extraction arms (EXTRACT, extract at the C entry): exact, or the TPU
-// kernel's binned (raft_tpu/ops/ivf_scan.py:89) and binned_deep (:123),
-// for every storage mode and the pq4 kernel alike. The binned arms keep
+// kernel's binned (raft_tpu/ops/ivf_scan.py:89), binned_deep (:123) and
+// fold (:169, at depth R = fold_depth(k), 2-4), for every storage mode
+// and the pq4 kernel alike. The binned and fold arms keep
 // per-(query, bin) slots in the dynamic shared memory where the exact arm
 // keeps its top-k lists (scan_topk.cuh), and after the scan each warp
 // extracts its queries' k entries and writes them with their ids, read
@@ -62,14 +63,21 @@
 // (binned) or 256, and cap / 128 <= 65,536 (a chunk in 16 bits). A
 // launch whose slots do not fit a block's shared memory returns its CUDA
 // error (binned_deep: 196,608 B at 64 queries beside the 35,328 B of
-// tiles, inside the 232,448 B a block may use).
+// tiles, inside the 232,448 B a block may use). The fold keeps
+// binned_deep's bins at depth R (96 KB at R = 2) and writes all 128 R
+// slots of each query unextracted (write_bins): a [nb, G, 128 R] buffer
+// that the caller's exact merge reduces; its write (nb G 128 R 8 B) adds
+// to the arm's bytes.
 #include "scan_topk.cuh"
 
 using namespace rtt;
 
 // The binned arms' write-out: warp w extracts queries w, w + 8, ... of the
 // block's `nq` (bins of query qq at sd / sc + qq * R * NBINS) into their
-// output rows; slots past G are not written.
+// output rows; slots past G are not written. The fold arms write every
+// slot instead, unextracted: level r of bin b at column r * 128 + b of the
+// query's 128 R-wide row, its id through the list's id row (-1 where
+// +inf).
 template <int EXTRACT>
 __device__ __forceinline__ void write_bins(const float* sd,
                                            const uint16_t* sc, int nq,
@@ -77,19 +85,32 @@ __device__ __forceinline__ void write_bins(const float* sd,
                                            int G, int k, float* out_d,
                                            int* out_i) {
   constexpr int R = bin_depth(EXTRACT);
-  const int lane = threadIdx.x & 31;
-  for (int qq = threadIdx.x >> 5; qq < nq; qq += NWARPS) {
-    const int g = g0 + qq;
-    if (g >= G) continue;
-    const size_t o = ((size_t)b * G + g) * k;
+  if constexpr (is_fold(EXTRACT)) {
+    constexpr int W = R * NBINS;
+    for (int e = threadIdx.x; e < nq * W; e += NTHREADS) {
+      const int g = g0 + e / W;
+      if (g >= G) continue;
+      const int s = e % W;
+      const size_t o = ((size_t)b * G + g) * W + s;
+      const float dv = sd[e];
+      out_d[o] = dv;
+      out_i[o] = isinf(dv) ? -1 : ids[NBINS * sc[e] + (s & (NBINS - 1))];
+    }
+  } else {
+    const int lane = threadIdx.x & 31;
+    for (int qq = threadIdx.x >> 5; qq < nq; qq += NWARPS) {
+      const int g = g0 + qq;
+      if (g >= G) continue;
+      const size_t o = ((size_t)b * G + g) * k;
 #if RTT_STAGES < 2
-    // the stage builds leave the extraction out (the outputs are not
-    // results), keeping the bins live
-    if (lane == 0) out_d[o] = sd[qq * R * NBINS];
+      // the stage builds leave the extraction out (the outputs are not
+      // results), keeping the bins live
+      if (lane == 0) out_d[o] = sd[qq * R * NBINS];
 #else
-    extract_bins<R>(sd + qq * R * NBINS, sc + qq * R * NBINS, k, ids,
-                    out_d + o, out_i + o, lane);
+      extract_bins<R>(sd + qq * R * NBINS, sc + qq * R * NBINS, k, ids,
+                      out_d + o, out_i + o, lane);
 #endif
+    }
   }
 }
 
@@ -409,6 +430,9 @@ static int launch(const T* storage, const int* indices,
                                G, k, metric, round_ops, out_d, out_i, stream)
   if (extract == kBinned) return RTT_ARM(kBinned);
   if (extract == kBinnedDeep) return RTT_ARM(kBinnedDeep);
+  if (extract == kFold2) return RTT_ARM(kFold2);
+  if (extract == kFold3) return RTT_ARM(kFold3);
+  if (extract == kFold4) return RTT_ARM(kFold4);
   return RTT_ARM(kExact);
 #undef RTT_ARM
 }
@@ -456,6 +480,9 @@ static int launch_pq4(const uint32_t* storage, const int* indices,
                           round_ops, out_d, out_i, stream)
   if (extract == kBinned) return RTT_ARM(kBinned);
   if (extract == kBinnedDeep) return RTT_ARM(kBinnedDeep);
+  if (extract == kFold2) return RTT_ARM(kFold2);
+  if (extract == kFold3) return RTT_ARM(kFold3);
+  if (extract == kFold4) return RTT_ARM(kFold4);
   return RTT_ARM(kExact);
 #undef RTT_ARM
 }
@@ -472,8 +499,9 @@ static int launch_pq4(const uint32_t* storage, const int* indices,
 // multiplies each row's dot (kind 4, may be null); pq_centers [p, 16, pl]
 // (kind 5); round_ops computes in bf16: f32 rows and staged queries are
 // rounded to bf16, plain queries (no centers, scale 1) must come rounded
-// already; extract 0 exact, 1 binned, 2 binned_deep; out_d / out_i
-// [nb, G, k]. Returns a cudaError_t code.
+// already; extract 0 exact, 1 binned, 2 binned_deep, 3-5 fold at depth
+// R = 2-4 (R >= ceil(k / 64)); out_d / out_i [nb, G, k], or [nb, G, 128 R]
+// for fold. Returns a cudaError_t code.
 extern "C" int ivf_list_scan_topk(
     const void* storage, int storage_kind, const void* indices,
     const void* list_sizes, const void* bucket_list, const void* bucket_q,
@@ -484,11 +512,12 @@ extern "C" int ivf_list_scan_topk(
     int round_ops, int extract, void* out_d, void* out_i, void* stream) {
   if (k < 1 || k > KMAX || cap < 1 || d < 1 || nb < 1 || G < 1 ||
       storage_kind < 0 || storage_kind > 5 || extract < kExact ||
-      extract > kBinnedDeep)
+      extract > kFold4)
     return (int)cudaErrorInvalidValue;
   if (extract != kExact &&
       (cap % NBINS != 0 || cap <= NBINS || cap / NBINS > 65536 ||
-       k > (extract == kBinned ? 64 : KMAX)))
+       k > (extract == kBinned ? 64 : KMAX) ||
+       (is_fold(extract) && k > 64 * bin_depth(extract))))
     return (int)cudaErrorInvalidValue;
   if (storage_kind >= 3 && (nw < 1 || (storage_kind == 3 && d != 8 * nw) ||
                             (storage_kind == 4 && d != 32 * nw)))

@@ -34,8 +34,10 @@
 //
 // Extraction (EXTRACT, a compile-time switch; exact by default). The
 // binned arms of the TPU kernel (raft_tpu/ops/ivf_scan.py:89 binned, :123
-// binned_deep) keep, instead of the top-k lists, R slots per bin of 128
-// (R = 1 binned, 4 binned_deep), a position's bin being its offset from
+// binned_deep) and the fold arms of both TPU kernels (fused_topk.py:102,
+// ivf_scan.py:169) keep, instead of the top-k lists, R slots per bin of
+// 128 (R = 1 binned, 4 binned_deep, 2-4 fold), a position's bin being its
+// offset from
 // the scan's first position mod 128: level r of bin b of query q at
 // [q][r][b], the distance as a float and the position as its 128-chunk in
 // 16 bits (6 bytes a slot, so binned_deep's 64 queries x 512 slots fit
@@ -47,7 +49,8 @@
 // for that tile, and tiles taken in position order give the reference's
 // order with no atomics. After the scan a warp extracts each of its
 // queries' k entries (extract_bins), ordered as the reference's arms
-// order them.
+// order them; the fold arms write every slot out unextracted instead
+// (the caller's write-out).
 //
 // RTT_STAGES (a build flag, ops/_build.py) compiles in only the first
 // stages, to split the kernel's time: 0 = the staging loads and the
@@ -81,12 +84,20 @@ constexpr int KPL = KMAX / 32;  // list slots per lane during an insertion
 
 enum Metric { kL2 = 0, kIP = 1, kCosine = 2 };
 enum Rows { kRowsDense = 0, kRowsI4 = 1, kRowsBits = 2 };
-enum Extract { kExact = 0, kBinned = 1, kBinnedDeep = 2 };
+// the fold arms at depth R = 2, 3, 4 are kFold2 + R - 2
+enum Extract {
+  kExact = 0, kBinned = 1, kBinnedDeep = 2, kFold2 = 3, kFold3 = 4,
+  kFold4 = 5
+};
 
-constexpr int NBINS = 128;      // bins of the binned arms
-// slots a bin keeps: one for binned, R = 4 for binned_deep
+constexpr int NBINS = 128;      // bins of the binned and fold arms
+__host__ __device__ constexpr bool is_fold(int extract) {
+  return extract >= kFold2;
+}
+// slots a bin keeps: one for binned, R = 4 for binned_deep, R for fold
 __host__ __device__ constexpr int bin_depth(int extract) {
-  return extract == kBinnedDeep ? 4 : 1;
+  return extract == kBinnedDeep ? 4 : is_fold(extract) ? extract - kFold2 + 2
+                                                       : 1;
 }
 
 struct __align__(16) Tiles {
@@ -480,7 +491,8 @@ __device__ void scan_topk(Tiles& t, float* topd, int* topp,
 }
 
 // Dynamic shared memory a block of `nq` queries needs for its top-k lists
-// (exact) or its bins (the binned arms).
+// (exact) or its bins (the binned and fold arms: 6 B a slot, 96 KB at
+// 64 queries for fold at R = 2, 192 KB at R = 4).
 inline size_t topk_smem_bytes(int k, int extract = kExact, int nq = QT) {
   if (extract == kExact)
     return (size_t)nq * k * (sizeof(float) + sizeof(int));

@@ -12,14 +12,27 @@ unrounded (bf16 rows widen exactly). Products are exact in f32 either way
 for bf16 pairs, and summed in f32.
 
 The kernel (``csrc/fused_knn_topk.cu``) never writes the [m, n] distance
-matrix: each block keeps its queries' top-k over one chunk of rows and
-writes a [m, n_chunks * k] candidate buffer that ``merge_topk`` reduces,
-as the reference merges its per-tile buffers (``fused_topk.py:255-258``).
-What bounds it on the H100 and what the design does about it is in the
-source's header. The reference's ``fold`` arm is not ported (ROADMAP.md).
+matrix: each block keeps its queries' candidates over one chunk of rows
+and writes them to a candidate buffer that ``merge_topk`` reduces, as the
+reference merges its per-tile buffers (``fused_topk.py:255-258``). What
+bounds it on the H100 and what the design does about it is in the
+source's header. Two arms (``variant``), the reference's:
 
-On a CUDA tensor :func:`fused_knn_topk` launches the kernel or raises; on a
-CPU tensor it runs :func:`fused_knn_topk_plain`; nothing else.
+* "exact": a block's exact top-k of its chunk, a [m, n_chunks * k]
+  buffer (the port's own chunks; k <= 256);
+* "fold" (``_extract_fold`` :102): the rows are cut into tiles of
+  ``tile_n`` (a multiple of 128; default :func:`tile_geometry`'s), and in
+  each tile each of the 128 lanes (column mod 128) keeps its R =
+  :func:`fold_depth` smallest (distance, column) pairs by the compare-swap
+  cascade of :func:`fold_lane_stacks`, written out unextracted — slot
+  (r, lane) of tile j at column ``j 128 R + r 128 + lane`` of a
+  [m, n_tiles * 128 R] buffer, id -1 where +inf. A true neighbour is lost
+  only where more than R of a tile's top-k share a lane; the exact merge
+  keeps everything else (k <= 256).
+
+On a CUDA tensor :func:`fused_knn_topk` (and :func:`fused_knn_fold`, the
+fold's unmerged buffer) launches the kernel or raises; on a CPU tensor it
+runs the plain version; nothing else.
 """
 
 from __future__ import annotations
@@ -29,7 +42,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from raft_tpu_torch.neighbors.common import blocked_topk, merge_topk
+from raft_tpu_torch.neighbors.common import BLOCK_ROWS, blocked_topk, \
+    merge_topk
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.utils.math import cdiv, round_up_to_multiple
 from raft_tpu_torch.utils.precision import dist_dot, round_bf16
@@ -65,7 +79,74 @@ def _norms(x: torch.Tensor, metric_kind: int, bf16: bool, norms):
     return (x32 * x32).sum(1)
 
 
-def _check(queries, dataset, k, metric_kind):
+# the per-core VMEM the reference's tile geometry budgets for (16 MB)
+_VMEM_BYTES = 16 * 1024 * 1024
+
+
+def fold_depth(k: int) -> int:
+    """Lane-stack depth R of the fold arm (``fused_topk.py:184``):
+    ceil(k / 64), at least 2."""
+    return max(2, -(-int(k) // 64))
+
+
+def candidate_width(k: int, variant: str) -> int:
+    """A tile's candidate-buffer width: k for "exact", 128 R for "fold"
+    (``fused_topk.py:174``)."""
+    if variant == "fold":
+        return 128 * fold_depth(k)
+    return int(k)
+
+
+def tile_geometry(m: int, n: int, d: int, k: int, variant: str,
+                  itemsize: int = 2) -> dict:
+    """The reference's analytic tile geometry (``fused_topk.py:146-169``),
+    verbatim: the query tile, and the row tile halved from 2048 (to 256 at
+    least) until queries, rows, the f32 distance tile and the candidate
+    buffers fit half of a TPU core's VMEM. The fold arm folds the rows of
+    one such row tile together, so the port keeps its ``tile_n``."""
+    floor = {1: 32, 2: 16}.get(int(itemsize), 8)
+    tile_q = 128 if m >= 128 else max(
+        floor, 1 << (max(m - 1, 1)).bit_length())
+    cand = candidate_width(k, variant)
+    budget = _VMEM_BYTES // 2
+    tile_n = 2048
+    while tile_n > 256:
+        used = (tile_q * d * itemsize + tile_n * d * itemsize
+                + 4 * tile_q * tile_n + 8 * tile_q * cand)
+        if used <= budget:
+            break
+        tile_n //= 2
+    return {"tile_q": int(tile_q), "tile_n": int(tile_n)}
+
+
+def fold_lane_stacks(dist: torch.Tensor, ids: torch.Tensor, R: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fold's R-deep lane stacks (``fused_topk.py:76-99``) over
+    distances ``dist`` [..., T] (T a multiple of 128) with ``ids`` of the
+    same shape: lane b keeps its R smallest (distance, id) pairs, filled
+    chunk by chunk in column order by a compare-swap cascade with a strict
+    ``<`` (a newcomer enters at the first level it beats, the slot it
+    displaces goes on down; equal distances do not keep column order).
+    Returns (stack_d, stack_i) [..., R, 128], +inf / -1 where unfilled."""
+    chunks = dist.shape[-1] // 128
+    nd_all = dist.unflatten(-1, (chunks, 128))
+    ni_all = ids.unflatten(-1, (chunks, 128))
+    shape = nd_all.shape[:-2] + (128,)
+    sd = [torch.full(shape, float("inf"), dtype=dist.dtype,
+                     device=dist.device)] * R
+    si = [torch.full(shape, -1, dtype=ids.dtype, device=ids.device)] * R
+    for c in range(chunks):
+        nd, ni = nd_all[..., c, :], ni_all[..., c, :]
+        for r in range(R):
+            swap = nd < sd[r]
+            sd[r], nd = torch.where(swap, nd, sd[r]), torch.where(swap, sd[r],
+                                                                 nd)
+            si[r], ni = torch.where(swap, ni, si[r]), torch.where(swap, si[r],
+                                                                 ni)
+    return torch.stack(sd, -2), torch.stack(si, -2)
+
+
+def _check(queries, dataset, k, metric_kind, variant="exact", tile_n=None):
     if queries.dim() != 2 or dataset.dim() != 2 or \
             queries.shape[1] != dataset.shape[1]:
         raise ValueError(f"bad shapes {tuple(queries.shape)} vs "
@@ -74,34 +155,80 @@ def _check(queries, dataset, k, metric_kind):
         raise ValueError(f"metric_kind must be L2|IP|COSINE, got {metric_kind}")
     if not 0 < k <= min(K_MAX, dataset.shape[0]):
         raise ValueError(f"k={k} out of range (1..min({K_MAX}, n))")
+    if variant not in ("exact", "fold"):
+        raise ValueError(f"variant must be 'exact'|'fold', got {variant!r}")
+    if variant == "fold" and int(tile_n) % 128:
+        raise ValueError(f"variant='fold' needs tile_n % 128 == 0 (the lane "
+                         f"fold covers tile_n // 128 chunks), got tile_n="
+                         f"{tile_n}")
+
+
+def _fold_tile(queries, dataset, k, tile_n):
+    """The fold's row tile: ``tile_n``, or the analytic geometry's at the
+    queries' operand width."""
+    if tile_n is not None:
+        return int(tile_n)
+    m, d = queries.shape
+    itemsize = 2 if queries.dtype == torch.bfloat16 else 4
+    return tile_geometry(m, dataset.shape[0], d, k, "fold",
+                         itemsize)["tile_n"]
 
 
 def fused_knn_topk(queries: torch.Tensor, dataset: torch.Tensor, k: int, *,
                    metric_kind: int, norms: Optional[torch.Tensor] = None,
                    qaux: Optional[torch.Tensor] = None,
                    keep: Optional[torch.Tensor] = None,
+                   variant: str = "exact", tile_n: Optional[int] = None,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact KNN in min-space: (dist [m, k] f32, idx [m, k] int32),
-    best-first. ``norms`` [n] = ||x||^2 and ``qaux`` [m] (||q||^2 for L2,
-    ||q|| for cosine) default to the operands' own; ``keep`` [n] (nonzero
-    = eligible) filters rows."""
-    _check(queries, dataset, k, metric_kind)
+    """KNN in min-space: (dist [m, k] f32, idx [m, k] int32), best-first.
+    ``norms`` [n] = ||x||^2 and ``qaux`` [m] (||q||^2 for L2, ||q|| for
+    cosine) default to the operands' own; ``keep`` [n] (nonzero =
+    eligible) filters rows. ``variant`` "exact" or "fold" with its row
+    tile ``tile_n`` (module docstring; the exact arm chooses its own
+    chunks)."""
+    if variant == "fold":
+        tile_n = _fold_tile(queries, dataset, k, tile_n)
+    _check(queries, dataset, k, metric_kind, variant, tile_n)
     if queries.device.type == "cpu":
         return fused_knn_topk_plain(queries, dataset, k,
                                     metric_kind=metric_kind, norms=norms,
-                                    qaux=qaux, keep=keep)
+                                    qaux=qaux, keep=keep, variant=variant,
+                                    tile_n=tile_n)
     if not queries.is_cuda:
         raise ValueError(f"fused_knn_topk takes CPU or CUDA tensors, got "
                          f"{queries.device}")
     cand_d, cand_i = _launch(queries, dataset, int(k), metric_kind, norms,
-                             qaux, keep)
+                             qaux, keep, variant, tile_n)
     return merge_topk(cand_d, cand_i, int(k), select_min=True)
 
 
 fused_knn_topk.launches = 0
 
 
-def _launch(queries, dataset, k, metric_kind, norms, qaux, keep):
+def fused_knn_fold(queries: torch.Tensor, dataset: torch.Tensor, k: int, *,
+                   metric_kind: int, norms: Optional[torch.Tensor] = None,
+                   qaux: Optional[torch.Tensor] = None,
+                   keep: Optional[torch.Tensor] = None,
+                   tile_n: Optional[int] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fold arm's unmerged buffer (dist, idx) [m, n_tiles * 128 R]
+    (module docstring): the kernel on a CUDA tensor (its launch counts on
+    :func:`fused_knn_topk`), :func:`fused_knn_fold_plain` on a CPU one."""
+    tile_n = _fold_tile(queries, dataset, k, tile_n)
+    _check(queries, dataset, k, metric_kind, "fold", tile_n)
+    if queries.device.type == "cpu":
+        return fused_knn_fold_plain(queries, dataset, k,
+                                    metric_kind=metric_kind, norms=norms,
+                                    qaux=qaux, keep=keep, tile_n=tile_n)
+    if not queries.is_cuda:
+        raise ValueError(f"fused_knn_fold takes CPU or CUDA tensors, got "
+                         f"{queries.device}")
+    return _launch(queries, dataset, int(k), metric_kind, norms, qaux, keep,
+                   "fold", tile_n)
+
+
+def _launch(queries, dataset, k, metric_kind, norms, qaux, keep,
+            variant="exact", tile_n=None):
     dev = queries.device
     if dataset.device != dev:
         raise ValueError("queries and dataset must be on the same device")
@@ -120,17 +247,26 @@ def _launch(queries, dataset, k, metric_kind, norms, qaux, keep):
     kp = None
     if keep is not None:
         kp = keep.to(device=dev, dtype=torch.int32).contiguous()
-    # rows per block: whole tiles, enough chunks for ~_TARGET_BLOCKS blocks
-    want = max(1, min(cdiv(n, _RT), cdiv(_TARGET_BLOCKS, cdiv(m, _QT))))
-    chunk_rows = round_up_to_multiple(cdiv(n, want), _RT)
-    n_chunks = cdiv(n, chunk_rows)
-    out_d = torch.empty((m, n_chunks * k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((m, n_chunks * k), dtype=torch.int32, device=dev)
+    if variant == "fold":
+        # a block per (64 queries, row tile), writing 128 R slots a query
+        fold_r = fold_depth(k)
+        chunk_rows = int(tile_n)
+        n_chunks = cdiv(n, chunk_rows)
+        width = n_chunks * 128 * fold_r
+    else:
+        # rows per block: whole tiles, enough chunks for ~_TARGET_BLOCKS
+        fold_r = 0
+        want = max(1, min(cdiv(n, _RT), cdiv(_TARGET_BLOCKS, cdiv(m, _QT))))
+        chunk_rows = round_up_to_multiple(cdiv(n, want), _RT)
+        n_chunks = cdiv(n, chunk_rows)
+        width = n_chunks * k
+    out_d = torch.empty((m, width), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m, width), dtype=torch.int32, device=dev)
 
     lib = _build.load("fused_knn_topk")
     fn = lib.fused_knn_topk
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
 
@@ -139,22 +275,16 @@ def _launch(queries, dataset, k, metric_kind, norms, qaux, keep):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(ptr(q32), ptr(qa), ptr(x), int(x.dtype == torch.bfloat16),
                 ptr(xn), ptr(kp), m, n, d, k, chunk_rows, n_chunks,
-                int(metric_kind), int(bf16), ptr(out_d), ptr(out_i), stream)
+                int(metric_kind), int(bf16), fold_r, ptr(out_d), ptr(out_i),
+                stream)
     _build.check(lib, "fused_knn_topk", rc)
     fused_knn_topk.launches += 1
     return out_d, out_i
 
 
-def fused_knn_topk_plain(queries: torch.Tensor, dataset: torch.Tensor,
-                         k: int, *, metric_kind: int,
-                         norms: Optional[torch.Tensor] = None,
-                         qaux: Optional[torch.Tensor] = None,
-                         keep: Optional[torch.Tensor] = None,
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch: dense distance blocks
-    merged into a running top-k (``blocked_topk``, ties to the lower
-    column)."""
-    _check(queries, dataset, k, metric_kind)
+def _distance_blocks(queries, dataset, metric_kind, norms, qaux):
+    """The kernel's distances as a function of a column range: (c0, c1) ->
+    [m, c1 - c0] f32 in min-space."""
     q32, bf16 = _operands(queries)
     xn = _norms(dataset, metric_kind, bf16, norms)
     qa = _aux(q32, metric_kind, qaux)
@@ -167,7 +297,63 @@ def fused_knn_topk_plain(queries: torch.Tensor, dataset: torch.Tensor,
                          None if qa is None else qa[:, None],
                          None if xn is None else xn[None, c0:c1])
 
+    return block
+
+
+def fused_knn_topk_plain(queries: torch.Tensor, dataset: torch.Tensor,
+                         k: int, *, metric_kind: int,
+                         norms: Optional[torch.Tensor] = None,
+                         qaux: Optional[torch.Tensor] = None,
+                         keep: Optional[torch.Tensor] = None,
+                         variant: str = "exact",
+                         tile_n: Optional[int] = None,
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch: for "exact", dense distance
+    blocks merged into a running top-k (``blocked_topk``, ties to the
+    lower column); for "fold", :func:`fused_knn_fold_plain`'s buffer
+    merged by ``merge_topk``."""
+    if variant == "fold":
+        cand_d, cand_i = fused_knn_fold_plain(
+            queries, dataset, k, metric_kind=metric_kind, norms=norms,
+            qaux=qaux, keep=keep, tile_n=tile_n)
+        return merge_topk(cand_d, cand_i, int(k), select_min=True)
+    _check(queries, dataset, k, metric_kind)
+    block = _distance_blocks(queries, dataset, metric_kind, norms, qaux)
     return blocked_topk(block, dataset.shape[0], k, keep=keep)
+
+
+def fused_knn_fold_plain(queries: torch.Tensor, dataset: torch.Tensor,
+                         k: int, *, metric_kind: int,
+                         norms: Optional[torch.Tensor] = None,
+                         qaux: Optional[torch.Tensor] = None,
+                         keep: Optional[torch.Tensor] = None,
+                         tile_n: Optional[int] = None,
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fold kernel's unmerged buffer in plain PyTorch: distance blocks
+    of whole row tiles, padded and filtered-out columns +inf, folded by
+    :func:`fold_lane_stacks` and laid out as the module docstring says."""
+    tile_n = _fold_tile(queries, dataset, k, tile_n)
+    _check(queries, dataset, k, metric_kind, "fold", tile_n)
+    n = dataset.shape[0]
+    R = fold_depth(k)
+    block = _distance_blocks(queries, dataset, metric_kind, norms, qaux)
+    step = tile_n * max(1, BLOCK_ROWS // tile_n)
+    out_d, out_i = [], []
+    for c0 in range(0, n, step):
+        c1 = min(n, c0 + step)
+        dist = block(c0, c1)
+        if keep is not None:
+            dist = torch.where(keep[c0:c1].to(dist.device)[None, :] > 0,
+                               dist, float("inf"))
+        pad = round_up_to_multiple(c1 - c0, tile_n) - (c1 - c0)
+        dist = torch.nn.functional.pad(dist, (0, pad), value=float("inf"))
+        col = torch.arange(c0, c0 + dist.shape[1], dtype=torch.int32,
+                           device=dist.device).expand_as(dist)
+        tiles = (dist.shape[0], dist.shape[1] // tile_n, tile_n)
+        sd, si = fold_lane_stacks(dist.reshape(tiles), col.reshape(tiles), R)
+        out_d.append(sd.flatten(1))
+        out_i.append(torch.where(torch.isinf(sd), -1, si).flatten(1))
+    return torch.cat(out_d, 1), torch.cat(out_i, 1)
 
 
 def _epilogue(dots: torch.Tensor, metric_kind: int, qaux, norms):

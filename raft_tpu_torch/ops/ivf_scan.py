@@ -70,11 +70,18 @@ position mod 128:
   k smallest of the 128 R slots, ties to the lowest bin, then the lowest
   level.
 
+* "fold" (``_extract_fold`` :169) keeps binned_deep's stacks at depth
+  R = ``fused_topk.fold_depth(k)`` (2 to k = 128, 3 to 192, 4 to 256) and
+  returns all 128 R slots unextracted, slot (r, bin) at column
+  ``r 128 + bin``, id -1 where +inf: the output is [nb, G, 128 R], and
+  the caller's exact merge selects (it reads the width off the output).
+
 A true neighbour is lost where more than R (one for "binned") of a list's
 top-k share a bin. :func:`eligible_extracts` and :func:`pick_extract` are
-the reference's eligibility and analytic pick (``ivf_scan.py:421-436``);
-its third approximate arm, ``fold`` (:169), is not ported (ROADMAP.md,
-Queue B item 2).
+the reference's eligibility and analytic pick (``ivf_scan.py:421-436``;
+the pick is never "fold"), and :func:`resolve_extract` its choice through
+the dispatch table (``tuning.choose("ivf_scan_extract", ...)``, :437-441),
+which an ``extract`` of None asks for.
 
 On a CUDA tensor :func:`ivf_list_scan_topk` launches
 ``csrc/ivf_list_scan_topk.cu`` or raises; on a CPU tensor it runs
@@ -90,15 +97,17 @@ import torch
 
 from raft_tpu_torch.neighbors.common import merge_topk
 from raft_tpu_torch.ops import _build
-from raft_tpu_torch.ops.fused_topk import COSINE, IP, K_MAX, L2, _epilogue
+from raft_tpu_torch.ops.fused_topk import COSINE, IP, K_MAX, L2, _epilogue, \
+    fold_depth, fold_lane_stacks
 from raft_tpu_torch.utils.precision import dist_dot, round_bf16
 
 _PLAIN_BUCKETS = 64     # buckets per plain-version batch
 # the kernel's storage_kind: dense rows by dtype, packed words by arm
 _STORAGE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 I4, BITS, PQ4 = 3, 4, 5
-# the kernel's extraction arm by name, and each arm's slots per bin
-EXTRACTS = {"exact": 0, "binned": 1, "binned_deep": 2}
+# the kernel's extraction arm by name (fold at depth R is 3 + R - 2), and
+# the binned arms' slots per bin
+EXTRACTS = {"exact": 0, "binned": 1, "binned_deep": 2, "fold": 3}
 _BIN_DEPTH = {"binned": 1, "binned_deep": 4}
 _BINS = 128
 
@@ -129,15 +138,15 @@ def binned_k_cap(recall_target: float = DEFAULT_RECALL_TARGET) -> int:
 def eligible_extracts(k: int, cap: int, approx: bool = True,
                       recall_target: float = DEFAULT_RECALL_TARGET) -> list:
     """The extraction arms allowed for ``k`` of a list capacity ``cap``
-    (``ivf_scan.py:421-432``): the binned arms need ``approx``, a cap
-    that is a multiple of 128 over 128, and k <= 256; the one-slot arm
-    also k <= 64 within the loss model. ``fold`` is not ported."""
+    (``ivf_scan.py:421-432``): the binned arms and fold need ``approx``, a
+    cap that is a multiple of 128 over 128, and k <= 256; the one-slot arm
+    also k <= 64 within the loss model."""
     binned_ok = approx and cap % _BINS == 0 and cap > _BINS
     eligible = ["exact"]
     if binned_ok and k <= 64 and binned_loss_fits(k, recall_target):
         eligible.append("binned")
     if binned_ok and k <= 256:
-        eligible.append("binned_deep")
+        eligible += ["binned_deep", "fold"]
     return eligible
 
 
@@ -148,6 +157,28 @@ def pick_extract(k: int, cap: int, approx: bool = True,
     eligible = eligible_extracts(k, cap, approx, recall_target)
     return ("binned" if "binned" in eligible
             else "binned_deep" if "binned_deep" in eligible else "exact")
+
+
+def resolve_extract(k: int, cap: int, G: int, approx: bool = True,
+                    recall_target: float = DEFAULT_RECALL_TARGET,
+                    device=None) -> str:
+    """The reference's arm for a scan of ``k`` a list of capacity ``cap``
+    in query groups of ``G`` (``ivf_scan.py:419-441``): the dispatch
+    table's ``ivf_scan_extract`` winner among :func:`eligible_extracts` at
+    the key {cap, k, g}, else :func:`pick_extract`, for a call on
+    ``device``."""
+    from raft_tpu_torch import tuning
+
+    return tuning.choose(
+        "ivf_scan_extract", {"cap": int(cap), "k": int(k), "g": int(G)},
+        eligible_extracts(k, cap, approx, recall_target),
+        pick_extract(k, cap, approx, recall_target), device=device)
+
+
+def out_width(k: int, extract: str) -> int:
+    """Columns a bucket's query row of the output has: k, or 128 R for
+    fold."""
+    return 128 * fold_depth(k) if extract == "fold" else int(k)
 
 
 def storage_kind(storage: torch.Tensor, packed_i4: bool = False,
@@ -203,8 +234,9 @@ def _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
     # the structural rule (a recall target of 0 admits any loss)
     if extract not in eligible_extracts(k, cap, True, 0.0):
         raise ValueError(f"extract={extract!r} not eligible at k={k}, "
-                         f"cap={cap} (binned arms: cap a multiple of 128 "
-                         f"over 128; k <= 64 binned, <= 256 binned_deep)")
+                         f"cap={cap} (binned arms and fold: cap a multiple "
+                         f"of 128 over 128; k <= 64 binned, <= 256 "
+                         f"binned_deep and fold)")
     if tuple(indices.shape) != (C, cap) or tuple(list_sizes.shape) != (C,):
         raise ValueError("indices must be [C, cap] and list_sizes [C]")
     if bucket_q.dim() != 2 or bucket_q.shape[0] != bucket_list.shape[0]:
@@ -265,10 +297,13 @@ def ivf_list_scan_topk(storage: torch.Tensor, indices: torch.Tensor,
                        packed_i4: bool = False, packed_bits: bool = False,
                        pq_centers: Optional[torch.Tensor] = None,
                        row_scale: Optional[torch.Tensor] = None,
-                       extract: str = "exact",
+                       extract: Optional[str] = "exact",
+                       approx: bool = True,
+                       recall_target: float = DEFAULT_RECALL_TARGET,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan each bucket's list against its query group; returns
-    (out_d [nb, G, k] f32 min-space, out_i [nb, G, k] int32 global ids).
+    (out_d [nb, G, w] f32 min-space, out_i [nb, G, w] int32 global ids),
+    w = k, or 128 R for the fold arm.
 
     ``storage`` [C, cap, d] f32, bf16 or int8, or [C, nw, cap] int32
     packed words; ``indices`` [C, cap] int32; ``list_sizes`` [C];
@@ -278,10 +313,15 @@ def ivf_list_scan_topk(storage: torch.Tensor, indices: torch.Tensor,
     product); ``keep`` [C, cap] (nonzero = eligible) or None;
     ``compute_dtype``, ``centers``, ``scale`` and the packed arms
     (``packed_i4``, ``packed_bits`` with ``row_scale``, ``pq_centers``)
-    and ``extract`` ("exact", "binned", "binned_deep") as in the module
-    docstring."""
+    and ``extract`` ("exact", "binned", "binned_deep", "fold") as in the
+    module docstring; an ``extract`` of None takes
+    :func:`resolve_extract`'s arm at ``approx`` and ``recall_target``."""
     cd = _compute_dtype(queries, compute_dtype)
     kind = storage_kind(storage, packed_i4, packed_bits, pq_centers)
+    if extract is None:
+        extract = resolve_extract(k, _geometry(storage, kind, pq_centers)[1],
+                                  bucket_q.shape[1], approx, recall_target,
+                                  storage.device)
     _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
            metric_kind, qaux, norms, centers, cd, K_MAX, scale, kind,
            pq_centers, row_scale, extract)
@@ -298,7 +338,7 @@ def ivf_list_scan_topk(storage: torch.Tensor, indices: torch.Tensor,
     return _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
                    queries, qaux, norms, keep, int(k), int(metric_kind),
                    cd == "bf16", centers, scale, pq_centers, row_scale,
-                   EXTRACTS[extract])
+                   extract)
 
 
 ivf_list_scan_topk.launches = 0
@@ -340,8 +380,11 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
                 else f32(qaux), xn=f32(norms), kp=i32(keep),
                 ct=f32(centers), sv=f32(scale) if vec else None,
                 rs=f32(row_scale), pc=f32(pq_centers))
-    out_d = torch.empty((nb, G, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nb, G, k), dtype=torch.int32, device=dev)
+    w = out_width(k, extract)
+    code = EXTRACTS[extract] + (fold_depth(k) - 2 if extract == "fold"
+                                else 0)
+    out_d = torch.empty((nb, G, w), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nb, G, w), dtype=torch.int32, device=dev)
 
     lib = _build.load("ivf_list_scan_topk")
     fn = lib.ivf_list_scan_topk
@@ -358,7 +401,7 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
                 ptr(args["bl"]), ptr(args["bq"]), ptr(q32), ptr(args["qa"]),
                 ptr(args["xn"]), ptr(args["kp"]), ptr(args["ct"]), scalar,
                 ptr(args["sv"]), ptr(args["rs"]), ptr(args["pc"]), cap, d,
-                nw, p, pl, nb, G, k, metric_kind, int(bf16), extract,
+                nw, p, pl, nb, G, k, metric_kind, int(bf16), code,
                 ptr(out_d), ptr(out_i), stream)
     _build.check(lib, "ivf_list_scan_topk", rc)
     ivf_list_scan_topk.launches += 1
@@ -431,17 +474,24 @@ def ivf_list_scan_topk_plain(storage: torch.Tensor, indices: torch.Tensor,
                              packed_bits: bool = False,
                              pq_centers: Optional[torch.Tensor] = None,
                              row_scale: Optional[torch.Tensor] = None,
-                             extract: str = "exact",
+                             extract: Optional[str] = "exact",
+                             approx: bool = True,
+                             recall_target: float = DEFAULT_RECALL_TARGET,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: batches of buckets gather
     their list blocks (decoding packed words) and queries (subtracting,
     scaling and rounding as the kernel stages them), take a batched f32
     product (the pq4 arm: table lookups summed in the kernel's order),
     mask, and keep each query's top-k with a stable sort (ties to the
-    lower list position), or its binned top-k (:func:`binned_topk`). The
-    exact arm keeps any k up to the capacity (the kernel: 256)."""
+    lower list position), or its binned top-k (:func:`binned_topk`), or
+    its fold slots (:func:`fold_topk`). The exact arm keeps any k up to
+    the capacity (the kernel: 256)."""
     cd = _compute_dtype(queries, compute_dtype)
     kind = storage_kind(storage, packed_i4, packed_bits, pq_centers)
+    if extract is None:
+        extract = resolve_extract(k, _geometry(storage, kind, pq_centers)[1],
+                                  bucket_q.shape[1], approx, recall_target,
+                                  storage.device)
     _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
            metric_kind, qaux, norms, centers, cd, indices.shape[1], scale,
            kind, pq_centers, row_scale, extract)
@@ -497,6 +547,8 @@ def ivf_list_scan_topk_plain(storage: torch.Tensor, indices: torch.Tensor,
         if extract == "exact":
             ids = indices[bl].to(torch.int32)[:, None, :].expand(-1, G, -1)
             d_k, i_k = merge_topk(dist, ids, k, select_min=True)
+        elif extract == "fold":
+            d_k, i_k = fold_topk(dist, indices[bl], k)
         else:
             d_k, i_k = binned_topk(dist, indices[bl], k, extract)
         out_d.append(d_k)
@@ -521,24 +573,13 @@ def binned_topk(dist: torch.Tensor, ids: torch.Tensor, k: int,
     (distance, bin, level)."""
     bb, G, cap = dist.shape
     R = _BIN_DEPTH[extract]
-    inf = torch.tensor(float("inf"), device=dist.device)
-    sd = [inf.expand(bb, G, _BINS)] * R
-    sp = [torch.zeros((bb, G, _BINS), dtype=torch.long,
-                      device=dist.device)] * R
-    lane = torch.arange(_BINS, device=dist.device)
-    for c0 in range(0, cap, _BINS):
-        nd = dist[:, :, c0:c0 + _BINS]
-        npos = (lane + c0).expand(bb, G, _BINS)
-        for r in range(R):
-            swap = nd < sd[r]
-            sd[r], nd = torch.where(swap, nd, sd[r]), torch.where(swap, sd[r],
-                                                                 nd)
-            sp[r], npos = (torch.where(swap, npos, sp[r]),
-                           torch.where(swap, sp[r], npos))
-    # slots in (bin, level) order; "binned" reorders them by position so
-    # that the stable sort below breaks its ties by position
-    sd = torch.stack(sd, -1).reshape(bb, G, _BINS * R)
-    pos = torch.stack(sp, -1).reshape(bb, G, _BINS * R)
+    pos = torch.arange(cap, device=dist.device).expand(bb, G, cap)
+    sd, sp = fold_lane_stacks(dist, pos, R)            # [bb, G, R, 128]
+    # slots in (bin, level) order, unfilled ones at position 0; "binned"
+    # reorders them by position so that the stable sort below breaks its
+    # ties by position
+    sd = sd.transpose(-1, -2).reshape(bb, G, _BINS * R)
+    pos = sp.clamp_min(0).transpose(-1, -2).reshape(bb, G, _BINS * R)
     if R == 1:
         by_pos = torch.argsort(pos, dim=-1)
         sd, pos = sd.gather(-1, by_pos), pos.gather(-1, by_pos)
@@ -548,3 +589,17 @@ def binned_topk(dist: torch.Tensor, ids: torch.Tensor, k: int,
     i_k = ids.to(torch.int32).gather(-1, p_k.reshape(bb, G * k)).reshape(
         bb, G, k)
     return d_k, torch.where(torch.isinf(d_k), -1, i_k)
+
+
+def fold_topk(dist: torch.Tensor, ids: torch.Tensor, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fold arm over min-space distances [bb, G, cap] (cap a multiple
+    of 128; +inf where masked) with the lists' ids [bb, cap]: binned_deep's
+    cascade (``fused_topk.fold_lane_stacks``) at depth R = ``fold_depth(k)``,
+    every slot returned, level r of bin b at column ``r 128 + b``:
+    (distances [bb, G, 128 R], ids, -1 where +inf)."""
+    bb, G, cap = dist.shape
+    ids = ids.to(torch.int32)[:, None, :].expand(bb, G, cap)
+    sd, si = fold_lane_stacks(dist, ids, fold_depth(k))
+    sd, si = sd.flatten(-2), si.flatten(-2)
+    return sd, torch.where(torch.isinf(sd), -1, si)

@@ -10,7 +10,8 @@ lists its functions; each instruction is kept without its address and
 encoding. Every function of DIR_A is matched to DIR_B's of the same name,
 where a kernel that gained an extraction-arm template argument in DIR_B
 is matched at the exact arm (0): ``ivf_list_scan_topk_kernel<...,
-(int)0>`` to ``ivf_list_scan_topk_kernel<...>`` and
+(int)0>`` to ``ivf_list_scan_topk_kernel<...>``,
+``fused_knn_topk_kernel<T, (int)0>`` to ``fused_knn_topk_kernel<T>`` and
 ``ivf_pq4_scan_topk_kernel<(int)0>`` to the untemplated kernel; branch
 labels are numbered anew in each function. Prints, per function, whether
 the instruction lists are equal, and one JSON line of the totals (also to
@@ -45,8 +46,8 @@ def _tool(name: str) -> str:
 def _key(name: str) -> str:
     """A demangled kernel name with the exact extraction arm's template
     argument dropped; other arms keep theirs (and match nothing)."""
-    name = re.sub(r"(ivf_list_scan_topk_kernel<[^<>]*), \(int\)0>", r"\1>",
-                  name)
+    name = re.sub(r"((?:ivf_list_scan_topk|fused_knn_topk)_kernel<[^<>]*), "
+                  r"\(int\)0>", r"\1>", name)
     # a template's name carries its return type, a plain function's not
     return name.replace("void ivf_pq4_scan_topk_kernel<(int)0>",
                         "ivf_pq4_scan_topk_kernel")

@@ -28,6 +28,7 @@ from raft_tpu.neighbors import ivf_pq as jax_pq
 from raft_tpu_torch import convert
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
 from raft_tpu_torch.neighbors.common import scan_route
+from raft_tpu_torch.ops import ivf_scan
 from tests.torch_parity import assert_topk_match, np_, torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
@@ -159,12 +160,18 @@ CUDA, CPU = torch.device("cuda"), torch.device("cpu")
     ("auto", 300, 512, 0.95, CPU, ("plain", "exact")),
 ])
 def test_scan_route_table(requested, kl, cap, rt, device, want):
-    assert scan_route(requested, kl, cap, rt, device) == want
+    # the arm the scan takes: scan_route's, or where it leaves the arm to
+    # the kernel (None), the kernel's own pick at a query group of 256
+    # (no packaged table covers ivf_scan_extract, so the analytic pick)
+    route, arm = scan_route(requested, kl, cap, device)
+    if arm is None:
+        arm = ivf_scan.resolve_extract(kl, cap, 256, rt < 1.0, rt, device)
+    assert (route, arm) == want
 
 
 @pytest.mark.parametrize("device", [CUDA, CPU])
 def test_scan_route_refuses(device):
     with pytest.raises(ValueError, match="at most 256"):
-        scan_route("pallas", 257, 512, 0.95, device)
+        scan_route("pallas", 257, 512, device)
     with pytest.raises(ValueError, match="scan_impl"):
-        scan_route("binned", 10, 512, 0.95, device)
+        scan_route("binned", 10, 512, device)

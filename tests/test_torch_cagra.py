@@ -6,7 +6,10 @@ reference.
   bitcasts — both sides given the norms the reference packs).
 * Whole searches on an index that raft_tpu built and saved, loaded by the
   port: recall within 0.01 of the reference's (its beam kernel in
-  interpret mode), L2 and inner product, the scattered path, a prefilter.
+  interpret mode; the port's packed path named as "pallas_interpret",
+  since "auto" on a CPU index takes the scattered path, as the
+  reference's does off its accelerator), L2 and inner product, the
+  scattered path, a prefilter.
   One flipped near-tie changes the beam's path, so whole searches are
   compared by recall, never for equality.
 * The slice end to end in the port (nn-descent build -> optimize -> pack
@@ -120,7 +123,8 @@ def test_search_on_reference_index(reference, reference_ids):
     np.testing.assert_array_equal(np_(idx.graph),
                                   np.asarray(reference["idx"].graph))
     assert idx.nbr_pack is not None
-    d, i = cagra.search(cagra.SearchParams(**SEARCH), idx, q, K)
+    d, i = cagra.search(cagra.SearchParams(scan_impl="pallas_interpret",
+                                           **SEARCH), idx, q, K)
     r_port = eval_recall(np_(i), want)
     r_ref = eval_recall(reference_ids, want)
     assert abs(r_port - r_ref) <= 0.01, (r_port, r_ref)
@@ -142,7 +146,8 @@ def test_inner_product_search(reference):
         scan_impl="pallas_interpret", **SEARCH), ref, q, K)
     idx = cagra_index_from_numpy({"dataset": x, "graph": graph},
                                  "inner_product", device="cpu")
-    d, i = cagra.search(cagra.SearchParams(**SEARCH), idx, q, K)
+    d, i = cagra.search(cagra.SearchParams(scan_impl="pallas_interpret",
+                                           **SEARCH), idx, q, K)
     _, want = naive_knn(q, x, K, metric="inner_product")
     r_port, r_ref = eval_recall(np_(i), want), eval_recall(np.asarray(ji),
                                                            want)
@@ -186,7 +191,8 @@ def test_port_build_end_to_end(reference, reference_ids):
     g = np_(idx.graph)
     assert g.shape == (2000, 16) and g.min() >= 0
     assert not (g == np.arange(2000)[:, None]).any()
-    _, i = cagra.search(cagra.SearchParams(**SEARCH), idx, q, K)
+    _, i = cagra.search(cagra.SearchParams(scan_impl="pallas_interpret",
+                                           **SEARCH), idx, q, K)
     _, want = naive_knn(q, x, K)
     r_port = eval_recall(np_(i), want)
     r_ref = eval_recall(reference_ids, want)

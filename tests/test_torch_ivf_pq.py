@@ -139,8 +139,9 @@ def test_save_load_both_ways(data, jax_index, tmp_path):
     jd, ji = jax_pq.search(jax_pq.SearchParams(
         scan_impl="pallas_interpret", local_recall_target=1.0, **sp),
         jax_index, q, 10)
-    pd, pi = ivf_pq.search(ivf_pq.SearchParams(**sp), pix,
-                           torch.from_numpy(q), 10)
+    pd, pi = ivf_pq.search(ivf_pq.SearchParams(
+        scan_impl="pallas_interpret", local_recall_target=1.0, **sp), pix,
+        torch.from_numpy(q), 10)
     assert_topk_match(pd, pi, jd, ji, 10)
     path2 = str(tmp_path / "port.pq")
     ivf_pq.save(path2, pix)

@@ -252,7 +252,9 @@ def test_search_parity_per_rung(data, jax_indexes, rung):
     assert pix.cache_kind == jix.cache_kind
     tq = torch.from_numpy(q)
     jd, ji = _jax_search(jix, q, 11, "pallas_interpret")
-    pd, pi = ivf_pq.search(ivf_pq.SearchParams(**_SP), pix, tq, 11)
+    pd, pi = ivf_pq.search(ivf_pq.SearchParams(
+        scan_impl="pallas_interpret", local_recall_target=1.0, **_SP), pix,
+        tq, 11)
     assert_topk_match(pd, pi, jd, ji, 10)
     if not rung.startswith("ip"):
         jd, ji = _jax_search(jix, q, 11, "xla")
@@ -322,8 +324,9 @@ def test_save_load_across_packages(data, jax_indexes, rung, tmp_path):
     _assert_cache_equal(pix, jix)
     assert pix.codes.shape == jix.codes.shape
     jd, ji = _jax_search(jix, q, 11, "pallas_interpret")
-    pd, pi = ivf_pq.search(ivf_pq.SearchParams(**_SP), pix,
-                           torch.from_numpy(q), 11)
+    pd, pi = ivf_pq.search(ivf_pq.SearchParams(
+        scan_impl="pallas_interpret", local_recall_target=1.0, **_SP), pix,
+        torch.from_numpy(q), 11)
     assert_topk_match(pd, pi, jd, ji, 10)
     path2 = str(tmp_path / "port.pq")
     ivf_pq.save(path2, pix)

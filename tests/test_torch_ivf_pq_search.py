@@ -5,16 +5,16 @@ Two indexes: L2, PER_SUBSPACE, pq_bits 8, rot 20 (pq_dim 10 x pq_len 2);
 inner product, PER_CLUSTER, pq_bits 4, rot 40 (pq_dim 8 x pq_len 5). Both
 carry the int8 decoded-residual cache.
 
-* The cache scan (the port's "auto" route on CPU tensors: kernel 2's
-  plain version) is held against JAX's Pallas kernel in interpret mode
-  (scan_impl="pallas_interpret", exact extraction): L2 / L2-sqrt / IP,
-  compute bf16 and f32, a prefilter. At k > 256 both packages leave the
-  kernel: the port runs the plain cache scan, JAX its XLA scan over the
-  cache (held at compute f32, where the two place the scale's rounding
-  differently by ~1e-7 relative).
+* The cache scan (scan_impl="pallas_interpret" at local_recall_target
+  1.0 on both sides: kernel 2's plain version in the port, JAX's Pallas
+  kernel in interpret mode, exact extraction): L2 / L2-sqrt / IP,
+  compute bf16 and f32, a prefilter.
 * The decode-then-matmul scan (scan_impl="xla" on both sides) is held
   against JAX's XLA route across the lut_dtype ladder, the bf16 internal
-  distance type, a prefilter, and the cache read back through it.
+  distance type, a prefilter, and the cache read back through it. At
+  k > 256 the port's default call on a CPU index takes it too, as the
+  reference's "auto" takes its XLA body off the accelerator (default
+  against default: tests/test_torch_queue_c.py).
 
 Tolerance: distances 1e-4 relative plus 1e-4 absolute (sum order), ids
 equal outside near-ties.
@@ -109,7 +109,8 @@ def test_cache_scan_matches_pallas_interpret(l2_index, metric, cd):
     pd, pi, jd, ji = _both(jix, pix, q, 10,
                            dict(scan_impl="pallas_interpret",
                                 compute_dtype=cd),
-                           dict(compute_dtype=cd))
+                           dict(scan_impl="pallas_interpret",
+                                local_recall_target=1.0, compute_dtype=cd))
     assert_topk_match(pd, pi, jd, ji, 10)
 
 
@@ -125,7 +126,9 @@ def test_cache_scan_inner_product_per_cluster(ip_index):
 def test_cache_scan_prefilter(l2_index):
     jix, pix, q = l2_index
     pd, pi, jd, ji = _both(jix, pix, q, 10,
-                           dict(scan_impl="pallas_interpret"), {},
+                           dict(scan_impl="pallas_interpret"),
+                           dict(scan_impl="pallas_interpret",
+                                local_recall_target=1.0),
                            prefilter=5)
     assert_topk_match(pd, pi, jd, ji, 10)
 

@@ -278,9 +278,13 @@ def test_wrapper_refuses_ineligible_arms():
     with pytest.raises(ValueError, match="not eligible"):
         ivf_scan.ivf_list_scan_topk(*args, k=65, metric_kind=ivf_scan.IP,
                                     extract="binned")
+    # the fold arm is accepted, its output 128 R = 256 slots wide at k = 10
+    d, i = ivf_scan.ivf_list_scan_topk(*args, k=10, metric_kind=ivf_scan.IP,
+                                       extract="fold")
+    assert d.shape == i.shape == (NB, G, 256)
     with pytest.raises(ValueError, match="extract must be"):
         ivf_scan.ivf_list_scan_topk(*args, k=10, metric_kind=ivf_scan.IP,
-                                    extract="fold")
+                                    extract="folded")
     d, i = ivf_scan.ivf_list_scan_topk(*args, k=65, metric_kind=ivf_scan.IP,
                                        extract="binned_deep")
     assert d.shape == (NB, G, 65)

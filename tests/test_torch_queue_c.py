@@ -1,5 +1,5 @@
-"""Three faults of the port against the JAX reference, each repaired and
-held here on the input that showed it.
+"""Faults of the port against the JAX reference, each repaired and held
+here on the input that showed it.
 
 1. IVF-Flat at k > 256 keeps min(k, cap) candidates per list, as the
    reference does, through the exact plain scan (the kernel keeps 256).
@@ -10,7 +10,13 @@ held here on the input that showed it.
    the kernel ("auto", "pallas") or the plain version ("xla",
    "pallas_interpret"), with the extraction arm the reference's kernel
    takes at the same local_recall_target (binned below 1 where the cap
-   allows it), and a fold arm forced by name raises.
+   allows it); a fold arm forced by name runs, as the reference's does;
+   and the reference's no-op or tiling arguments (IVF-Flat's
+   conservative_memory_allocation, pairwise_distance's tile_m / tile_n)
+   are accepted.
+5. IVF-PQ's and 6. CAGRA's default search on a CPU index take the
+   reference's CPU route (its "auto" off the accelerator): the decode
+   body and the scattered traversal.
 
 Tolerance: distances 1e-4 relative (and absolute), ids equal outside
 near-ties (tests/torch_parity.py).
@@ -21,14 +27,19 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+from raft_tpu.distance.pairwise import pairwise_distance as \
+    jax_pairwise_distance
 from raft_tpu.matrix.select_k import select_k as jax_select_k
 from raft_tpu.neighbors import brute_force as jax_bf
 from raft_tpu.neighbors import cagra as jax_cagra
 from raft_tpu.neighbors import ivf_flat as jax_ivf
+from raft_tpu.neighbors import ivf_pq as jax_pq
 from raft_tpu.neighbors import nn_descent as jax_nnd
 from raft_tpu_torch import convert
+from raft_tpu_torch.distance.pairwise import pairwise_distance
 from raft_tpu_torch.matrix.select_k import select_k
-from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, nn_descent
+from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq, \
+    nn_descent
 from tests.oracles import naive_knn
 from tests.torch_parity import assert_topk_match, np_, torch_threads  # noqa: F401
 
@@ -152,6 +163,26 @@ def _brute_force_call(s, kw):
     assert_topk_match(*got, *ref, 10, rtol=1e-5, atol=1e-4)
 
 
+def _ivf_flat_params_call(s, kw):
+    # every list probed, so both builds give the exact top-k
+    p = dict(n_lists=8, kmeans_n_iters=5, **kw)
+    got = ivf_flat.search(ivf_flat.SearchParams(n_probes=8),
+                          ivf_flat.build(ivf_flat.IndexParams(**p), s["x"],
+                                         device="cpu"), s["q"], 10)
+    ref = jax_ivf.search(jax_ivf.SearchParams(
+        n_probes=8, local_recall_target=1.0),
+        jax_ivf.build(jax_ivf.IndexParams(**p), s["x"]), s["q"], 10)
+    assert_topk_match(*got, *ref, 10, rtol=1e-5, atol=1e-4)
+
+
+def _pairwise_call(s, kw):
+    x, q = s["x"][:300], s["q"]
+    got = pairwise_distance(q, x, "euclidean", device="cpu", **kw)
+    ref = jax_pairwise_distance(q, x, "euclidean", **kw)
+    np.testing.assert_allclose(np_(got), np.asarray(ref), rtol=1e-5,
+                               atol=1e-4)
+
+
 def _cagra_call(s, kw):
     sp = dict(itopk_size=32, max_iterations=8, **kw)
     got = cagra.search(cagra.SearchParams(**sp),
@@ -175,21 +206,67 @@ def _cagra_call(s, kw):
     (_brute_force_call, dict(tile_n=256, fast=False, impl="scan")),
     (_brute_force_call, dict(tile_n=512, fast=True, impl="auto")),
     (_cagra_call, dict(scan_impl="xla")),
+    (_ivf_flat_params_call, dict(conservative_memory_allocation=True)),
+    (_pairwise_call, dict(tile_m=16, tile_n=128)),
 ], ids=["ivf_flat-recall-targets", "ivf_flat-pallas",
         "ivf_flat-pallas_interpret", "ivf_flat-xla", "nn_descent-xla",
         "nn_descent-pallas_interpret", "select_k-tournament",
         "select_k-top_k", "brute_force-scan", "brute_force-fast",
-        "cagra-xla"])
+        "cagra-xla", "ivf_flat-conservative_memory_allocation",
+        "pairwise-tiles"])
 def test_reference_arguments_accepted(small, call, kw):
     call(small, kw)
 
 
-def test_forced_approximate_arm_raises(small):
+def test_forced_approximate_arm(small):
+    # kernel 1's fold arm forced by name runs (its plain version on the
+    # CPU) and returns the reference's interpreted fold kernel's result
     x, q = small["x"], small["q"]
-    with pytest.raises(NotImplementedError, match="Queue B item 2"):
-        brute_force.search(brute_force.build(x, device="cpu"), q, 10,
-                           impl="fused_fold")
+    got = brute_force.search(brute_force.build(x, device="cpu"), q, 10,
+                             impl="fused_fold")
+    ref = jax_bf.search(jax_bf.build(x), q, 10, impl="fused_fold:interpret")
+    assert_topk_match(*got, *ref, 10, rtol=1e-5, atol=1e-4)
     with pytest.raises(ValueError, match="scan_impl"):
         ivf_flat.search(ivf_flat.SearchParams(scan_impl="binned"),
                         ivf_flat.build(ivf_flat.IndexParams(n_lists=4),
                                        x, device="cpu"), q, 5)
+
+
+# --- 5 and 6. default calls on a CPU index ---------------------------------
+# The reference's "auto" takes its XLA route off the accelerator: IVF-PQ's
+# decode body and CAGRA's scattered traversal. The port's default call on a
+# CPU index takes the same route, on the reference's own index saved and
+# loaded by the port; data and arguments are the probe's that found each
+# fault (3,000 x 32 standard-normal rows, 32 queries).
+
+@pytest.fixture(scope="module")
+def probe():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((3000, 32)).astype(np.float32)
+    q = rng.standard_normal((32, 32)).astype(np.float32)
+    return x, q
+
+
+def test_ivf_pq_default_call_on_cpu_index(probe, tmp_path):
+    x, q = probe
+    jix = jax_pq.build(jax_pq.IndexParams(n_lists=16, kmeans_n_iters=5), x)
+    assert jix.cache_kind == "i8"
+    path = str(tmp_path / "probe.ivf_pq")
+    jax_pq.save(path, jix)
+    pix = ivf_pq.load(path, device="cpu")
+    ref = jax_pq.search(jax_pq.SearchParams(n_probes=4), jix, q, 10)
+    got = ivf_pq.search(ivf_pq.SearchParams(n_probes=4), pix, q, 10)
+    assert_topk_match(*got, *ref, 10, rtol=1e-5, atol=1e-5)
+
+
+def test_cagra_default_call_on_cpu_index(probe, tmp_path):
+    x, q = probe
+    jix = jax_cagra.build(jax_cagra.IndexParams(
+        intermediate_graph_degree=32, graph_degree=16), x)
+    assert jix.nbr_pack is not None
+    path = str(tmp_path / "probe.cagra")
+    jax_cagra.save(path, jix)
+    pix = cagra.load(path, device="cpu")
+    ref = jax_cagra.search(jax_cagra.SearchParams(), jix, q, 10)
+    got = cagra.search(cagra.SearchParams(), pix, q, 10)
+    assert_topk_match(*got, *ref, 10, rtol=1e-5, atol=1e-5)
