@@ -8,8 +8,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              limit as nvidia-smi reports them;
 2. build   — compiles every CUDA kernel with nvcc, one process per
              library, all at once: the four kernels whole, and the two
-             scan kernels again with only their first stages (for the
-             stage timings);
+             scan kernels and the local join again with only their first
+             stages (for the stage timings);
 3. parity  — holds each kernel against its plain PyTorch version on the
              card, first on small ragged shapes (lists shorter than k, a
              keep filter, all metrics; f32 x f32, f32 x bf16 and bf16 x
@@ -20,7 +20,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
              whole word too), pq4 (bit for bit) — and the int8 arm with
              per-list scales on the same kinds of cases; for the
              nn-descent join C < K, K = 1, K = 128, d off a multiple of 4
-             and duplicate ids; for the beam step both arms, emitted
+             and duplicate ids, then, on small integers (every distance
+             exact, so bit for bit): many duplicate ids (n < C),
+             candidates repeating the list, twin rows (equal distances),
+             -0.0 (zero rows under inner product, a candidate that is the
+             node's row), rows of -1 candidates only, C = 0, K + C =
+             2048, 513 and <= 32, C off a multiple of 32, d = 30, and
+             sorted lists (a first join's output) that half the
+             candidates repeat; for the
+             beam step both arms, emitted
              candidates, m off any tile and masked parents; kernel 2's
              binned and binned_deep extraction arms on every storage
              kind, caps 256 and 384, k 1 to 256, with duplicate rows,
@@ -102,7 +110,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 9. report  — each kernel (and kernel 2's int8 arm) timed at its path's
              shapes beside its plain version and its bound (the scan
              kernels also by stage: staging loads and epilogue, dots,
-             top-k selection; the packed and binned arms were timed on
+             top-k selection; the local join by stage: candidate rows
+             gathered, scores, merge; the packed and binned arms were timed on
              their paths); then the nvidia-smi line, one JSON line of
              per-kernel numbers (binned from the IVF-Flat default search,
              binned_deep from the refined IVF-PQ one, kernel 1's fold from
@@ -826,6 +835,99 @@ def join_case(g, dev, B, C, d, K, n):
     return q, cand, x, norms, cur_d, cur_i, qn
 
 
+def join_int_case(g, dev, B, C, d, K, n, ip=False):
+    """A local-join input on small integers (rows, queries and current
+    distances): every dot, norm and distance is an integer that f32 holds
+    exactly in any summation order, so kernel and plain version must agree
+    bit for bit, ties included. The current lists hold unique ids in no
+    order, some of them short."""
+    x = torch.randint(-3, 4, (n, d), generator=g, device=dev).float()
+    q = torch.randint(-3, 4, (B, d), generator=g, device=dev).float()
+    cand = torch.randint(-1, n, (B, C), generator=g, device=dev,
+                         dtype=torch.int32)
+    cur_i = torch.argsort(torch.rand(B, n, generator=g, device=dev),
+                          1)[:, :K].to(torch.int32)
+    live = torch.randint(1, K + 1, (B, 1), generator=g, device=dev)
+    cur_i[torch.arange(K, device=dev)[None, :] >= live] = -1
+    lo = -8 * d if ip else 0
+    cur_d = torch.randint(lo, 8 * d, (B, K), generator=g,
+                          device=dev).float()
+    cur_d[cur_i < 0] = float("inf")
+    return q, cand, x, (x * x).sum(1), cur_d, cur_i, (q * q).sum(1)
+
+
+def join_hazards(g, dev):
+    """(name, join_int_case outputs, ip) for the cases a dedup or a
+    selection can get wrong."""
+    out = []
+
+    def case(name, B, C, d, K, n, ip=False, plant=None):
+        q, cand, x, norms, cur_d, cur_i, qn = join_int_case(
+            g, dev, B, C, d, K, n, ip)
+        if plant is not None:
+            plant(q, cand, x, cur_d, cur_i)
+            norms, qn = (x * x).sum(1), (q * q).sum(1)
+        out.append((f"{name} B={B} C={C} d={d} K={K} n={n} ip={ip}",
+                    (q, cand, x, norms, cur_d, cur_i, qn), ip))
+
+    def repeat_list(q, cand, x, cur_d, cur_i):
+        K = cur_i.shape[1]
+        cand[:, :K] = cur_i[:, torch.randperm(K, generator=g,
+                                              device=dev)]
+
+    def twin_rows(q, cand, x, cur_d, cur_i):
+        x[x.shape[0] // 2:] = x[:x.shape[0] // 2]
+
+    def zero_rows(q, cand, x, cur_d, cur_i):
+        x[:x.shape[0] // 8] = 0.0
+        cur_d[:, 0] = torch.where(cur_i[:, 0] >= 0, -0.0, cur_d[:, 0])
+
+    def self_rows(q, cand, x, cur_d, cur_i):
+        q.copy_(x[cand[:, 0].long().clamp_min(0)])
+        cur_d[:, 0] = torch.where(cur_i[:, 0] >= 0, -0.0, cur_d[:, 0])
+
+    def starved(q, cand, x, cur_d, cur_i):
+        cand[::3] = -1
+
+    def sorted_list(name, B, C, d, K, n, ip=False):
+        # the list a first join writes: in (distance, id) order, with the
+        # distances a join computes; fresh candidates repeat half of it
+        from raft_tpu_torch.ops.graph_join import graph_local_join_plain
+
+        q, cand, x, norms, cur_d, cur_i, qn = join_int_case(
+            g, dev, B, C, d, K, n, ip)
+        cur_d, cur_i = graph_local_join_plain(q, cand, x, norms, cur_d,
+                                              cur_i, qn=qn, ip=ip)
+        cand = torch.randint(-1, n, (B, C), generator=g, device=dev,
+                             dtype=torch.int32)
+        cand[:, :K // 2] = cur_i[:, :K // 2]
+        out.append((f"{name} B={B} C={C} d={d} K={K} n={n} ip={ip}",
+                    (q, cand, x, norms, cur_d, cur_i, qn), ip))
+
+    case("many duplicate ids (n < C)", 32, 200, 32, 32, 48)
+    case("candidates repeat the list", 32, 96, 32, 64, 500,
+         plant=repeat_list)
+    case("equal distances (twin rows)", 32, 100, 32, 32, 300,
+         plant=twin_rows)
+    case("-0.0 (zero rows)", 32, 100, 32, 32, 300, ip=True,
+         plant=zero_rows)
+    case("-0.0 (a candidate is the node's row)", 32, 100, 32, 32, 300,
+         plant=self_rows)
+    case("rows with every candidate -1", 30, 64, 32, 16, 300,
+         plant=starved)
+    case("C = 0", 16, 0, 32, 24, 300)
+    case("K + C = 2048", 8, 1920, 16, 128, 4000)
+    case("K + C = 513", 8, 449, 16, 64, 2000)
+    case("K + C <= 32", 16, 20, 16, 4, 100)
+    case("C off a multiple of 32", 24, 45, 32, 32, 300)
+    case("d = 30", 24, 64, 30, 16, 300, plant=repeat_list)
+    sorted_list("sorted list (a join's output)", 32, 100, 32, 32, 300)
+    sorted_list("sorted list (a join's output)", 32, 100, 32, 32, 300,
+                ip=True)
+    sorted_list("sorted list (a join's output)", 16, 224, 32, 96, 2000)
+    return out
+
+
 def phase_small_parity_graph(dev) -> None:
     from raft_tpu_torch.ops import beam_step, graph_join
 
@@ -846,6 +948,11 @@ def phase_small_parity_graph(dev) -> None:
                                                    cur_i, **kw)
         compare(f"graph_local_join B={B} C={C} d={d} K={K} ip={ip}", kd, ki,
                 pd, pi, atol=join_atol(q, x, norms, qn, ip), join=True)
+    for name, args, ip in join_hazards(g, dev):
+        kw = dict(qn=args[-1], ip=ip)
+        compare_exact(f"graph_local_join {name}",
+                      graph_join.graph_local_join(*args[:-1], **kw),
+                      graph_join.graph_local_join_plain(*args[:-1], **kw))
 
     log("parity (small, ragged): beam_merge_step")
     for L, C, m, width, window in [(16, 32, 128, 4, 2), (12, 20, 100, 3, 2),
@@ -1676,7 +1783,7 @@ def cagra_path(dev, x, q, truth, k=10) -> dict:
 
 
 def measure_join(args, kw, launches) -> dict:
-    from raft_tpu_torch.ops import graph_join
+    from raft_tpu_torch.ops import _build, graph_join
 
     q, cand, data, norms, cur_d, cur_i = args
     B, C = cand.shape
@@ -1702,7 +1809,15 @@ def measure_join(args, kw, launches) -> dict:
     dev_ms = device_ms(kern, "graph_local_join_kernel", reps=10)
     ms = call_ms if dev_ms is None else dev_ms
     plain_ms = cuda_ms(plain, reps=2)
+    split = {}
+    for st in (0, 1):
+        with _build.only_stages(st):
+            split[st] = cuda_ms(kern, reps=10)
     fn.launches = before                        # measurement launches
+    log(f"  graph_local_join by stage: candidate rows gathered "
+        f"{split[0]:.3f} ms, scores {split[1] - split[0]:.3f} ms, merge "
+        f"{call_ms - split[1]:.3f} ms (a call {call_ms:.3f} ms; stage "
+        f"builds {split[0]:.3f} and {split[1]:.3f} ms)")
 
     # the least time for this block: node rows, candidate ids and lists
     # read once, every referenced data row and norm read once, the merged

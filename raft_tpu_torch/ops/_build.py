@@ -8,9 +8,11 @@ unchanged one is reused. Building happens at first use or through
 here runs at import time.
 
 A kernel of ``STAGED`` can also be built with only its first stages
-(``scan_topk.cuh`` ``RTT_STAGES``: 0 = the staging loads and the
-epilogue, 1 = plus the dots, 2 = plus the top-k selection, the whole
-kernel). The partial builds exist to split a kernel's time by stage;
+(``RTT_STAGES``; for the scan kernels, ``scan_topk.cuh``: 0 = the staging
+loads and the epilogue, 1 = plus the dots, 2 = plus the top-k selection,
+the whole kernel; for the local join: 0 = the candidate rows gathered, 1
+= plus the scores, 2 = plus the merge). The partial builds exist to split
+a kernel's time by stage;
 inside :func:`only_stages` the wrappers launch them instead of the whole
 kernel, and their outputs are not results.
 """
@@ -33,7 +35,7 @@ BUILD_DIR = _HERE / "_kernels"
 KERNELS = ("fused_knn_topk", "ivf_list_scan_topk", "graph_local_join",
            "cagra_beam_step")
 # the kernels whose source takes RTT_STAGES (the others build whole only)
-STAGED = ("fused_knn_topk", "ivf_list_scan_topk")
+STAGED = ("fused_knn_topk", "ivf_list_scan_topk", "graph_local_join")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]

@@ -1,10 +1,12 @@
 """Compares the machine code of kernels 1 and 2 in two checkouts.
 
     python3 -m raft_tpu_torch.tools.sass_ab DIR_A DIR_B [--out FILE]
+                                            [--sources NAME ...]
+                                            [--stages 0 1 2]
 
-For ``fused_knn_topk.cu`` and ``ivf_list_scan_topk.cu`` of each checkout,
-at each ``RTT_STAGES`` build (0, 1, 2), nvcc compiles a cubin (all twelve
-at once) for
+For ``fused_knn_topk.cu`` and ``ivf_list_scan_topk.cu`` (or the
+``--sources`` named) of each checkout, at each ``RTT_STAGES`` build (0,
+1, 2, or ``--stages``), nvcc compiles a cubin (all twelve at once) for
 ``sm_90a`` with the flags of ``ops/_build.py`` and ``cuobjdump -sass``
 lists its functions; each instruction is kept without its address and
 encoding. Every function of DIR_A is matched to DIR_B's of the same name,
@@ -98,19 +100,21 @@ def main() -> int:
     ap.add_argument("dir_a")
     ap.add_argument("dir_b")
     ap.add_argument("--out")
+    ap.add_argument("--sources", nargs="+", default=list(SOURCES))
+    ap.add_argument("--stages", nargs="+", type=int, default=[0, 1, 2])
     args = ap.parse_args()
     total = {"functions": 0, "equal": 0, "differ": [], "missing": []}
     with tempfile.TemporaryDirectory() as tmp:
         # every build at once, one nvcc each
         jobs = {(tag, src, st): _compile(root, src, st, tmp, tag)
                 for tag, root in (("a", args.dir_a), ("b", args.dir_b))
-                for src in SOURCES for st in (0, 1, 2)}
+                for src in args.sources for st in args.stages}
         for key, (_, proc) in jobs.items():
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {key}:\n{out}")
-        for src in SOURCES:
-            for st in (0, 1, 2):
+        for src in args.sources:
+            for st in args.stages:
                 a = sass(jobs["a", src, st][0])
                 b = sass(jobs["b", src, st][0])
                 for key, ins in a.items():

@@ -19,19 +19,35 @@ reference does.
   device is only read, so no card is needed).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from raft_tpu import tuning as jax_tuning
 from raft_tpu.neighbors import ivf_flat as jax_ivf
 from raft_tpu.neighbors import ivf_pq as jax_pq
-from raft_tpu_torch import convert
+from raft_tpu_torch import convert, tuning
 from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
 from raft_tpu_torch.neighbors.common import scan_route
 from raft_tpu_torch.ops import ivf_scan
 from tests.torch_parity import assert_topk_match, np_, torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_table():
+    """Both packages' tuning at its defaults (no table: the analytic
+    pick), and no executable of the reference left by an earlier test
+    file in this process: its searches resolve the arm while they trace,
+    so a search traced under another file's table at these shapes would
+    answer with that table's arm."""
+    for mod in (tuning, jax_tuning):
+        mod.set_table_path(None)
+        mod.set_mode(None)
+        mod.reload()
+    jax.clear_caches()
 
 
 def _carry_flat(jix):

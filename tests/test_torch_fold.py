@@ -34,6 +34,7 @@ import json
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from raft_tpu import tuning as jax_tuning
@@ -55,12 +56,16 @@ RTOL, ATOL = 1e-5, 1e-4
 
 @pytest.fixture
 def tables():
-    """Both packages' tuning state, restored after the test."""
+    """Both packages' tuning state, restored after the test, and the
+    reference's jit caches dropped: its searches resolve the arm while
+    they trace, so an executable traced under a table would answer a
+    later call at the same shapes with the table's arm."""
     yield
     for mod in (tuning, jax_tuning):
         mod.set_table_path(None)
         mod.set_mode(None)
         mod.reload()
+    jax.clear_caches()
 
 
 def assert_fold_match(pd, pi, jd, ji, R):
