@@ -32,9 +32,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              candidates, m off any tile and masked parents; kernel 2's
              binned and binned_deep extraction arms on every storage
              kind, caps 256 and 384, k 1 to 256, with duplicate rows,
-             bit for bit wherever the exact arm is, and refused at cap
-             128; the fold arms of both kernels, unmerged buffers bit for
-             bit: kernel 1's for every metric, f32 and bf16, R = 2, 3, 4
+             bit for bit wherever the exact arm is (on the core's
+             body), and refused at cap 128; binned_deep through its
+             Hopper body (int8, i4 and sign-bit rows, rot 40 to 128, k 1
+             to 256, caps 256 to 640, L2, inner product and cosine, G off
+             a multiple of 64), bit for bit on small integers; the fold
+             arms of both kernels, unmerged buffers bit for bit: kernel
+             1's for every metric, f32 and bf16, R = 2, 3, 4
              and each tile of tuning.FUSED_TOPK_TILES with n off the tile,
              kernel 2's on every storage kind and the pq4 kernel at R = 2
              and 4), then at the paths' own shapes; then a small IVF-Flat,
@@ -130,7 +134,14 @@ order by both, so only the dots' sum order differs. The pq4 arm, and the
 beam step, and their plain versions round and sum in one fixed order, so
 they must agree bit for bit. The binned and fold arms keep what the
 reference's bin rules keep from the same distances, so wherever the exact
-arm agrees bit for bit, they must too.
+arm agrees bit for bit, they must too; except the binned_deep arm's Hopper
+body (int8, i4 and sign-bit rows under bf16 operands), whose dots run on
+the tensor cores and sum the exact products in another order: it is held
+bit for bit on small-integer cases, where every dot is exact in any
+order, and elsewhere to the tolerance with equal ids on tie-free keys.
+The CAGRA self-search, the refined IVF-PQ first stage and RaBitQ's first
+stage must take that body (launches by body printed), or the run fails
+after its report.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -207,8 +218,9 @@ def compare(name, kd, ki, pd, pi, atol=ATOL, join=False) -> dict:
     """Kernel output (kd, ki) against the plain version's (pd, pi); raises
     beyond tolerance. ``atol`` may be a per-row tensor. Rows are sorted,
     so a tie is a distance within tolerance of its neighbour in the plain
-    row. For the local join (``join``), whose errors are those of the
-    expanded form and whose rows end at K, a tie is also one in the
+    row. For the local join and kernel 2's binned_deep Hopper body
+    (``join``), whose errors are those of the expanded form and whose
+    rows end at K (k), a tie is also one in the
     kernel's row, and in the last column, where the rival past the row's
     end is unseen, two different ids at distances within tolerance of
     each other.
@@ -257,6 +269,35 @@ def compare(name, kd, ki, pd, pi, atol=ATOL, join=False) -> dict:
             f"{pd[r, max(c - 1, 0):c + 2].tolist()} "
             f"{pi[r, max(c - 1, 0):c + 2].tolist()}")
     return {"max_abs_err": max_err, "tie_free_keys": n_keyed}
+
+
+def deep_atol(args, kw) -> torch.Tensor:
+    """Per-row absolute tolerance of kernel 2's binned_deep Hopper body
+    against its plain version under L2, one value a (bucket, query slot)
+    row: the tensor cores take each dot's exact products and sum them,
+    16 a step, with truncated alignment, so a dot may differ from the
+    plain version's by a few f32 ulps of its terms per step, not of the
+    (often much smaller) distance. Over 8 steps that stays under 2^-18 of
+    the expanded form's terms, ||q - c||^2 + ||x||^2 (the dot's products
+    sum to at most their mean): 4e-6 of that scale, with the query's qaux
+    and its list's largest norm. Inner product and cosine keep ATOL."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    storage, _, _, bl, bq, queries, qaux, norms = args[:8]
+    if kw.get("metric_kind") != ivf_scan.L2 or norms is None:
+        return torch.full(bq.shape, ATOL, device=bq.device).reshape(-1)
+    q = bq.long().clamp_min(0)
+    if kw.get("centers") is not None:
+        qa = torch.empty(bq.shape, device=bq.device)
+        c = kw["centers"].float()
+        for b0 in range(0, bq.shape[0], 256):
+            r = queries.float()[q[b0:b0 + 256]] - \
+                c[bl.long()[b0:b0 + 256]][:, None, :]
+            qa[b0:b0 + 256] = (r * r).sum(2)
+    else:
+        qa = qaux.float()[q]
+    xn = norms.float()[bl.long()].amax(1)[:, None]
+    return (4e-6 * (qa + xn) + ATOL).reshape(-1)
 
 
 def join_atol(q, data, norms, qn, ip) -> torch.Tensor:
@@ -627,6 +668,7 @@ def phase_small_parity_binned(dev) -> None:
     C, nb, G, m = 12, 30, 256, 400
     L2, IP = ivf_scan.L2, ivf_scan.IP
     bit_exact = {}
+    by_body = ivf_scan.ivf_list_scan_topk.by_body
     for arm, cap, rot, p, pl, k, mk, filt, cd, ex in [
             ("f32", 256, 24, 0, 0, 1, L2, True, "f32", "binned"),
             ("f32", 384, 40, 0, 0, 10, IP, False, "f32", "binned"),
@@ -652,17 +694,21 @@ def phase_small_parity_binned(dev) -> None:
         ed, ei = ivf_scan.ivf_list_scan_topk(*args, **kw)
         epd, epi = ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
         exact_bits = torch.equal(ed, epd) and torch.equal(ei, epi)
+        hopper = by_body.get("hopper", 0)
         kd, ki = ivf_scan.ivf_list_scan_topk(*args, extract=ex, **kw)
         pd, pi = ivf_scan.ivf_list_scan_topk_plain(*args, extract=ex, **kw)
         compare(name, kd, ki, pd, pi)
         same = torch.equal(kd, pd) and torch.equal(ki, pi)
         bit_exact.setdefault(arm, []).append(same)
-        if exact_bits and not same:
+        # the Hopper body sums the dots in another order: its bits are
+        # held on small integers (phase_small_parity_deep)
+        if exact_bits and not same and by_body.get("hopper", 0) == hopper:
             raise SmokeFailure(f"{name}: the exact arm is bit for bit its "
                                "plain version's, the binned arm is not")
     log("  bit for bit per storage kind (binned arm vs plain version): "
         + ", ".join(f"{arm} {sum(v)}/{len(v)}" for arm, v in
                     bit_exact.items()))
+    phase_small_parity_deep(dev, g)
     _, ids, sizes, bl, bq = args[:5]
     storage, kw, _, xn, _ = binned_case(g, dev, "f32", C, 128, 24)
     args = (storage, ids[:, :128].contiguous(), sizes.clamp_max(128), bl,
@@ -681,6 +727,106 @@ def phase_small_parity_binned(dev) -> None:
             ("kernel", "exact"):
         raise SmokeFailure("scan_route at cap 128 did not pick exact")
     log("  cap 128: both arms refused, 'auto' routes the exact kernel")
+
+
+def small_integers(g, dev, args, kw):
+    """The case with every dot exact in any summation order: queries,
+    centers, norms and qaux small integers, scales 1, row scales powers of
+    two, int8 rows in [-20, 20] (i4 and sign words are small already)."""
+    def ints(t, lo, hi):
+        return torch.randint(lo, hi + 1, t.shape, generator=g,
+                             device=dev).to(t.dtype)
+
+    args = list(args)
+    # zero columns stay zero (the sign-bit arm's padding)
+    args[5] = ints(args[5], -6, 6) * (args[5] != 0)
+    for i in (6, 7):
+        if args[i] is not None:
+            args[i] = ints(args[i], 0, 200)
+    if args[0].dtype == torch.int8:
+        args[0] = ints(args[0], -20, 20)
+    if kw.get("centers") is not None:
+        kw["centers"] = ints(kw["centers"], -3, 3) * (kw["centers"] != 0)
+    if isinstance(kw.get("scale"), torch.Tensor):
+        kw["scale"] = torch.ones_like(kw["scale"])
+    if kw.get("row_scale") is not None:
+        kw["row_scale"] = 2.0 ** ints(kw["row_scale"], -2, 1)
+    return tuple(args), kw
+
+
+def phase_small_parity_deep(dev, g) -> None:
+    """Kernel 2's binned_deep arm through its Hopper body
+    (``csrc/ivf_scan_deep.cuh``) against the plain version: int8 rows with
+    residual queries and per-list scales (L2) or scaled queries (inner
+    product), one scalar scale and one cosine case, i4 and sign bits with
+    the row scale, rot 40 to 128, k 1 to 256, caps 256, 384 and 640,
+    with binned_case's duplicate rows, an empty list, one of 5 rows
+    (shorter than a 128-row tile), sizes off a multiple of 128, the keep
+    filter, empty query slots and G off a multiple of 64. Every launch
+    must take the Hopper body. Its dots sum in another order than the
+    plain version's, so random cases hold ``compare``'s tolerance with
+    equal ids on tie-free keys, and small-integer cases, where every dot
+    is exact in any order, must agree bit for bit."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    log("parity (small, ragged): ivf_list_scan_topk binned_deep, Hopper "
+        "body")
+    L2, IP, COS = ivf_scan.L2, ivf_scan.IP, ivf_scan.COSINE
+    by_body = ivf_scan.ivf_list_scan_topk.by_body
+    n_bits = 0
+    for arm, cap, rot, k, mk, filt, G, small in [
+            ("i8", 256, 96, 14, L2, True, 256, False),
+            ("i8", 384, 96, 30, IP, False, 100, False),
+            ("i8", 640, 128, 64, L2, True, 200, False),
+            ("i8", 384, 128, 256, IP, True, 256, False),
+            ("i8 scalar", 640, 96, 40, L2, False, 256, False),
+            ("i8 cosine", 384, 128, 30, COS, True, 130, False),
+            ("i4", 256, 96, 30, L2, True, 100, False),
+            ("i4", 640, 128, 64, IP, False, 256, False),
+            ("i4", 384, 40, 256, L2, False, 200, False),
+            ("bits", 384, 96, 40, L2, True, 256, False),
+            ("bits", 640, 128, 14, IP, False, 100, False),
+            ("bits", 256, 100, 64, L2, False, 200, False),
+            ("i8", 384, 128, 1, L2, True, 256, False),
+            ("i4", 256, 96, 10, IP, False, 100, False),
+            ("i8", 384, 96, 10, L2, True, 200, True),
+            ("i8", 384, 96, 30, L2, True, 256, True),
+            ("i8", 640, 128, 64, IP, False, 100, True),
+            ("i8", 256, 128, 256, L2, False, 200, True),
+            ("i4", 640, 96, 40, L2, True, 256, True),
+            ("i4", 384, 128, 14, IP, False, 100, True),
+            ("bits", 384, 96, 40, L2, False, 256, True),
+            ("bits", 640, 128, 256, L2, True, 200, True)]:
+        kind = arm.split()[0]
+        args, kw = scan_case(g, dev, kind, cap, rot, 0, 0, k,
+                             IP if mk == COS else mk, filt, "bf16", G=G)
+        if arm == "i8 scalar":
+            kw["scale"] = 0.0371
+        if arm == "i8 cosine":
+            q = args[5]
+            args = args[:6] + (torch.sqrt((q * q).sum(1)),
+                               torch.rand(args[0].shape[:2], generator=g,
+                                          device=dev) * 100 + 10, args[8])
+            kw["metric_kind"] = COS
+        if small:
+            args, kw = small_integers(g, dev, args, kw)
+        kw["extract"] = "binned_deep"
+        name = (f"ivf_list_scan_topk binned_deep (Hopper body) {arm} cap={cap}"
+                f" rot={rot} k={k} metric={mk} keep={filt} G={G}"
+                + (" small integers" if small else ""))
+        before = by_body.get("hopper", 0)
+        kd, ki = ivf_scan.ivf_list_scan_topk(*args, **kw)
+        if by_body.get("hopper", 0) != before + 1:
+            raise SmokeFailure(f"{name}: did not take the Hopper body")
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
+        compare(name, kd, ki, pd, pi)
+        same = torch.equal(kd, pd) and torch.equal(ki, pi)
+        n_bits += same
+        if small and not same:
+            raise SmokeFailure(f"{name}: every dot is exact, yet kernel and "
+                               "plain version differ")
+    log(f"  Hopper body bit for bit on {n_bits} cases (all small-integer "
+        "ones among them)")
 
 
 def sorted_rows(d, i):
@@ -1290,6 +1436,7 @@ def measure_ivf(args, kw, launches, arm: str = "",
         f"residual {kw.get('centers') is not None}, extract "
         f"{kw.get('extract', 'exact')}")
     before = ivf_scan.ivf_list_scan_topk.launches
+    bodies = dict(ivf_scan.ivf_list_scan_topk.by_body)
 
     def kern():
         return ivf_scan.ivf_list_scan_topk(*args, **kw)
@@ -1298,14 +1445,20 @@ def measure_ivf(args, kw, launches, arm: str = "",
         return ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
 
     kd, ki = kern()
+    hopper = (ivf_scan.ivf_list_scan_topk.by_body.get("hopper", 0)
+              > bodies.get("hopper", 0))
     pd, pi = plain()
     exact = torch.equal(kd, pd) and torch.equal(ki, pi)
     if kw.get("extract") == "fold":
         # the fold's rows are its unextracted slots, sorted for compare
         kd, ki = sorted_rows(kd, ki)
         pd, pi = sorted_rows(pd, pi)
-    err = compare(f"{name} (path shapes)", kd, ki, pd, pi)
-    log(f"  {name}: kernel and plain version "
+    # the Hopper body: deep_atol, and near-ties in either row or past its
+    # end (compare's join rule), as kernel 3's
+    err = compare(f"{name} (path shapes)", kd, ki, pd, pi,
+                  atol=deep_atol(args, kw) if hopper else ATOL, join=hopper)
+    log(f"  {name}: kernel ({'Hopper' if hopper else 'core'} body) and "
+        f"plain version "
         f"{'equal bit for bit' if exact else 'differ within tolerance'}")
     del kd, ki, pd, pi
     ms = cuda_ms(kern, reps=10)
@@ -1313,6 +1466,7 @@ def measure_ivf(args, kw, launches, arm: str = "",
         stage_split(name, kern, ms)
     plain_ms = cuda_ms(plain, reps=plain_reps)
     ivf_scan.ivf_list_scan_topk.launches = before   # measurement launches
+    ivf_scan.ivf_list_scan_topk.by_body.update(bodies)
 
     bytes_, ops, peak, what = scan_work(args, kw)
     t_bytes = bytes_ / H100_HBM_BYTES_PER_S * 1e3
@@ -1322,7 +1476,8 @@ def measure_ivf(args, kw, launches, arm: str = "",
         f"{bytes_ / 1e9:.3f} GB -> bound {max(t_bytes, t_ops):.3f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
     return {"name": name, "route": "cuda",
-            "source": "raft_tpu_torch/ops/csrc/ivf_list_scan_topk.cu",
+            "source": ("raft_tpu_torch/ops/csrc/ivf_scan_deep.cuh" if hopper
+                       else "raft_tpu_torch/ops/csrc/ivf_list_scan_topk.cu"),
             "replaces": _ARM_SITE[arm.split()[0] if arm else ""],
             "launches": launches, "max_abs_err": err["max_abs_err"],
             "ms": ms, "plain_ms": plain_ms,
@@ -1343,8 +1498,11 @@ def default_search(label: str, first, q, truth, k: int,
     columns) and refined, QPS as the median of 5 batches of the whole
     search, launches of kernel 2 by arm during one search (counts set to
     0 just before it, read just after), a profile, and the arm at the
-    search's shapes (``measure_ivf``; where it is not bit for bit its
-    plain version, the exact arm on the same inputs must not be either).
+    search's shapes (``measure_ivf``; where the core's arm is not bit for
+    bit its plain version, the exact arm on the same inputs must not be
+    either; the Hopper binned_deep body, whose dots sum in another order,
+    is held to ``compare``'s tolerance and equal ids on tie-free keys).
+    Launches are also split by body ("core", "hopper").
     Gates, each listed in ``"failed"``: recall within
     ``RECALL_LOSS_BUDGET`` of the exact run's on the same index and
     queries (raw, and refined where refined), and ``floor`` /
@@ -1357,6 +1515,7 @@ def default_search(label: str, first, q, truth, k: int,
         _, cand = first()
         torch.cuda.synchronize()
         launches = dict(rec.by_arm)
+        bodies = dict(rec.by_body)
     finally:
         ivf_scan.ivf_list_scan_topk = orig
     n = truth.shape[0]
@@ -1373,7 +1532,9 @@ def default_search(label: str, first, q, truth, k: int,
     arms = ", ".join(f"{a} {c}" for a, c in launches.items())
     log(f"default search, {label}: {q.shape[0]} queries in "
         f"{med * 1e3:.2f} ms (median of 5) -> {q.shape[0] / med:.1f} QPS; "
-        f"kernel 2 launches by arm: {arms}; recall@{k} {raw:.4f} (exact arm "
+        f"kernel 2 launches by arm: {arms}, by body: "
+        + ", ".join(f"{b} {c}" for b, c in bodies.items())
+        + f"; recall@{k} {raw:.4f} (exact arm "
         f"{exact_recall:.4f})"
         + (f", refined {refined:.4f} (exact arm {exact_refined:.4f})"
            if refine is not None else "")
@@ -1388,7 +1549,10 @@ def default_search(label: str, first, q, truth, k: int,
     kern = measure_ivf(a, kw, launches[arm], arm=f"{arm} {label}",
                        plain_reps=1)
     failed = []
-    if not kern["bit_exact"]:
+    # the Hopper body sums the dots in another order (its bits are held on
+    # small integers, phase_small_parity_deep); the core's arms keep what
+    # the exact arm keeps
+    if not kern["bit_exact"] and not bodies.get("hopper"):
         ekw = dict(kw, extract="exact")
         ed, ei = ivf_scan.ivf_list_scan_topk(*a, **ekw)
         pd, pi = ivf_scan.ivf_list_scan_topk_plain(*a, **ekw)
@@ -1412,7 +1576,7 @@ def default_search(label: str, first, q, truth, k: int,
     return {"label": label, "arm": arm, "kernel": kern, "recall": raw,
             "exact_recall": exact_recall, "refined_recall": refined,
             "exact_refined": exact_refined, "qps": q.shape[0] / med,
-            "launches": launches, "failed": failed}
+            "launches": launches, "by_body": bodies, "failed": failed}
 
 
 def measure_knn(args, kw, launches) -> dict:
@@ -2023,7 +2187,8 @@ def record_scan(captured: dict, pick):
     ``pick(args, kwargs)`` selects. The wrapper counts its launches on the
     module attribute it is called by, so while the stand-in is in place
     the count lands on the stand-in, which starts at 0; ``by_arm`` splits
-    it by extraction arm. Returns (the original to restore, the
+    it by extraction arm, and the wrapper splits it by body into
+    ``by_body`` ("core", "hopper"). Returns (the original to restore, the
     stand-in)."""
     from raft_tpu_torch.ops import ivf_scan
 
@@ -2040,6 +2205,7 @@ def record_scan(captured: dict, pick):
 
     rec.launches = 0
     rec.by_arm = {}
+    rec.by_body = {}
     ivf_scan.ivf_list_scan_topk = rec
     return orig, rec
 
@@ -2366,7 +2532,7 @@ def cagra_ivf_pq_path(dev, x, q, truth, k=10) -> dict:
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         scan_build, beam_build = rec.launches, beam.launches
-        by_arm = dict(rec.by_arm)
+        by_arm, by_body = dict(rec.by_arm), dict(rec.by_body)
     finally:
         ivf_scan.ivf_list_scan_topk = orig
         for mod, attr, fn in saved:
@@ -2383,7 +2549,8 @@ def cagra_ivf_pq_path(dev, x, q, truth, k=10) -> dict:
         f"optimize {secs['optimize']:.2f} + pack {secs['pack']:.2f} (the "
         f"rest: self-edge drop)")
     log(f"  launches: ivf_list_scan_topk {scan_build} per build ("
-        + ", ".join(f"{a} {c}" for a, c in by_arm.items())
+        + ", ".join(f"{a} {c}" for a, c in by_arm.items()) + "; by body "
+        + ", ".join(f"{b} {c}" for b, c in by_body.items())
         + f"), beam_merge_step {launches['beam_merge_step'] - beam_build} "
         f"per search of {q.shape[0]} queries")
     for name, cnt in launches.items():
@@ -2413,7 +2580,8 @@ def cagra_ivf_pq_path(dev, x, q, truth, k=10) -> dict:
     profile_search(lambda: cagra.search(sp, index, q, k))
     return {"captured": captured["scan"], "launches": launches,
             "build_s": build_s, "secs": secs, "recall": rec,
-            "qps": q.shape[0] / med, "by_arm": by_arm, "graph_recall": g_rec}
+            "qps": q.shape[0] / med, "by_arm": by_arm, "by_body": by_body,
+            "graph_recall": g_rec}
 
 
 def graph_recall(x, graph, n_sample: int = 1000) -> float:
@@ -2548,6 +2716,22 @@ def main() -> int:
         f"impl='fused_exact' QPS {bres['exact_qps']:.1f}, recall@10 "
         f"{bres['exact_recall']:.4f}")
     failed = rres.pop("failed") + bres["failed"]
+    # the binned_deep launches of these three paths must take the Hopper
+    # body (ops/ivf_scan.binned_deep_body)
+    for label, arms, bodies in [
+            ("CAGRA (IVF-PQ build) self-search", pres["by_arm"],
+             pres["by_body"]),
+            (dres["defaults"][1]["label"], dres["defaults"][1]["launches"],
+             dres["defaults"][1]["by_body"]),
+            (rres["rabitq"]["default"]["label"],
+             rres["rabitq"]["default"]["launches"],
+             rres["rabitq"]["default"]["by_body"])]:
+        log(f"binned_deep body, {label}: launches by arm {arms}, by body "
+            f"{bodies}")
+        if not arms.get("binned_deep") or \
+                bodies.get("hopper", 0) != arms["binned_deep"]:
+            failed.append(f"{label}: its binned_deep launches did not all "
+                          f"take the Hopper body ({bodies})")
     defaults = ([fres] + dres["defaults"] + [r["default"] for r in
                                               rres.values()]
                 + [flat_fold] + dres["folds"])

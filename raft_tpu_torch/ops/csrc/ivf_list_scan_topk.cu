@@ -68,7 +68,13 @@
 // slots of each query unextracted (write_bins): a [nb, G, 128 R] buffer
 // that the caller's exact merge reduces; its write (nb G 128 R 8 B) adds
 // to the arm's bytes.
+//
+// The binned_deep arm has a second body, designed for Hopper
+// (ivf_scan_deep.cuh, extract code 6): int8, i4 and sign-bit rows with
+// bf16 operands and d <= 128 take it where the caller routes them
+// (ops/ivf_scan.py:binned_deep_body); the other modes keep this file's.
 #include "scan_topk.cuh"
+#include "ivf_scan_deep.cuh"
 
 using namespace rtt;
 
@@ -500,8 +506,10 @@ static int launch_pq4(const uint32_t* storage, const int* indices,
 // (kind 5); round_ops computes in bf16: f32 rows and staged queries are
 // rounded to bf16, plain queries (no centers, scale 1) must come rounded
 // already; extract 0 exact, 1 binned, 2 binned_deep, 3-5 fold at depth
-// R = 2-4 (R >= ceil(k / 64)); out_d / out_i [nb, G, k], or [nb, G, 128 R]
-// for fold. Returns a cudaError_t code.
+// R = 2-4 (R >= ceil(k / 64)), 6 binned_deep through the Hopper body
+// (kinds 2-4, round_ops, d <= 128; the int8 kind's d a multiple of 16;
+// storage, norms, keep and row_scale 16-byte aligned); out_d / out_i
+// [nb, G, k], or [nb, G, 128 R] for fold. Returns a cudaError_t code.
 extern "C" int ivf_list_scan_topk(
     const void* storage, int storage_kind, const void* indices,
     const void* list_sizes, const void* bucket_list, const void* bucket_q,
@@ -512,8 +520,25 @@ extern "C" int ivf_list_scan_topk(
     int round_ops, int extract, void* out_d, void* out_i, void* stream) {
   if (k < 1 || k > KMAX || cap < 1 || d < 1 || nb < 1 || G < 1 ||
       storage_kind < 0 || storage_kind > 5 || extract < kExact ||
-      extract > kFold4)
+      (extract > kFold4 && extract != deep::kBinnedDeepHopper))
     return (int)cudaErrorInvalidValue;
+  if (extract == deep::kBinnedDeepHopper) {
+    if (cap % NBINS != 0 || cap <= NBINS || cap / NBINS > 65536 ||
+        (storage_kind >= 3 && (nw < 1 || (storage_kind == 3 && d != 8 * nw) ||
+                               (storage_kind == 4 && d != 32 * nw))))
+      return (int)cudaErrorInvalidValue;
+    return deep::launch(
+        storage_kind, storage, static_cast<const int*>(indices),
+        static_cast<const int*>(list_sizes),
+        static_cast<const int*>(bucket_list),
+        static_cast<const int*>(bucket_q), static_cast<const float*>(queries),
+        static_cast<const float*>(qaux), static_cast<const float*>(norms),
+        static_cast<const int*>(keep), static_cast<const float*>(centers),
+        scale, static_cast<const float*>(scale_vec),
+        static_cast<const float*>(row_scale), cap, d, nw, nb, G, k, metric,
+        round_ops, static_cast<float*>(out_d), static_cast<int*>(out_i),
+        static_cast<cudaStream_t>(stream));
+  }
   if (extract != kExact &&
       (cap % NBINS != 0 || cap <= NBINS || cap / NBINS > 65536 ||
        k > (extract == kBinned ? 64 : KMAX) ||

@@ -83,9 +83,19 @@ the pick is never "fold"), and :func:`resolve_extract` its choice through
 the dispatch table (``tuning.choose("ivf_scan_extract", ...)``, :437-441),
 which an ``extract`` of None asks for.
 
+The binned_deep arm has two CUDA bodies: the shared core's
+(``csrc/scan_topk.cuh``), and one designed for Hopper
+(``csrc/ivf_scan_deep.cuh``: one thread owns each (query, bin) across
+128-row tiles, queries held once as tensor-core fragments, a cp.async row
+ring, bf16 ``mma.sync`` dots). :func:`binned_deep_body` routes by mode:
+int8, i4 and sign-bit rows with bf16 operands at d <= 128 take the Hopper
+body; the rest keep the core's. Both keep what the reference's arm keeps;
+the Hopper body sums each dot's f32 products in another order.
+
 On a CUDA tensor :func:`ivf_list_scan_topk` launches
 ``csrc/ivf_list_scan_topk.cu`` or raises; on a CPU tensor it runs
-:func:`ivf_list_scan_topk_plain`; nothing else.
+:func:`ivf_list_scan_topk_plain`; nothing else. Its ``launches`` counts
+every launch and ``by_body`` splits them by body ("core", "hopper").
 """
 
 from __future__ import annotations
@@ -104,12 +114,19 @@ from raft_tpu_torch.utils.precision import dist_dot, round_bf16
 _PLAIN_BUCKETS = 64     # buckets per plain-version batch
 # the kernel's storage_kind: dense rows by dtype, packed words by arm
 _STORAGE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-I4, BITS, PQ4 = 3, 4, 5
+I8, I4, BITS, PQ4 = 2, 3, 4, 5
 # the kernel's extraction arm by name (fold at depth R is 3 + R - 2), and
 # the binned arms' slots per bin
 EXTRACTS = {"exact": 0, "binned": 1, "binned_deep": 2, "fold": 3}
 _BIN_DEPTH = {"binned": 1, "binned_deep": 4}
 _BINS = 128
+# the extract code of binned_deep through the Hopper body
+HOPPER_DEEP = 6
+# a block's shared memory on the H100, and the Hopper body's use of it:
+# 64 queries x 128 bins x 24 B of slots, 2 ring stages, 512 B of query ids
+# and qaux (csrc/ivf_scan_deep.cuh)
+SMEM_LIMIT = 232_448
+_DEEP_SLOTS, _DEEP_STAGES, _DEEP_STATIC = 64 * 128 * 24, 2, 512
 
 # the per-list recall budget the binned arm is judged against when the
 # caller does not say (the SearchParams default)
@@ -173,6 +190,51 @@ def resolve_extract(k: int, cap: int, G: int, approx: bool = True,
         "ivf_scan_extract", {"cap": int(cap), "k": int(k), "g": int(G)},
         eligible_extracts(k, cap, approx, recall_target),
         pick_extract(k, cap, approx, recall_target), device=device)
+
+
+def binned_deep_body(kind: int, round_ops: bool, rot: int) -> str:
+    """The body a binned_deep launch takes: "hopper"
+    (``csrc/ivf_scan_deep.cuh``) for int8 rows (``rot`` a multiple of 16),
+    packed i4 and packed sign bits, with bf16 operands (``round_ops``) and
+    the kernel's width ``rot`` <= 128 (the sign-bit arm's padded width);
+    else "core" (the shared core's binned_deep: f32 and bf16 rows, f32
+    operands, wider rows, the pq4 kernel)."""
+    if not round_ops or kind not in (I8, I4, BITS) or rot > 128:
+        return "core"
+    if kind == I8 and rot % 16:
+        return "core"
+    return "hopper"
+
+
+def deep_smem_bytes(kind: int, rot: int, norms: bool = True,
+                    keep: bool = True, row_scale: bool = False) -> int:
+    """Shared memory of one Hopper-body block (dynamic and static) for rows
+    of ``kind`` at width ``rot`` with the side arrays named: the slots,
+    two ring stages of a 128-row tile (int8 128 rot B, i4 64 rot, sign
+    words 16 rot) and 512 B for each side array, and the query ids and
+    qaux. Raises where it exceeds a block's 232,448 B or the body does not
+    take the kind."""
+    if kind not in (I8, I4, BITS):
+        raise ValueError(f"the Hopper binned_deep body takes storage kinds "
+                         f"{I8}, {I4} and {BITS}, not {kind}")
+    rows = 128 * (rot if kind == I8 else 4 * (rot // 8) if kind == I4
+                  else 4 * -(-rot // 32))
+    stage = rows + 512 * (int(norms) + int(keep) + int(row_scale))
+    total = _DEEP_SLOTS + _DEEP_STAGES * stage + _DEEP_STATIC
+    if total > SMEM_LIMIT:
+        raise ValueError(f"the Hopper binned_deep body needs {total} B of "
+                         f"shared memory at rot={rot}, more than a block's "
+                         f"{SMEM_LIMIT}")
+    return total
+
+
+def extract_code(extract: str, k: int, body: str = "core") -> int:
+    """The C entry's extract code: the arm's, at the fold's depth, or
+    ``HOPPER_DEEP`` for binned_deep through the Hopper body."""
+    if extract == "binned_deep" and body == "hopper":
+        return HOPPER_DEEP
+    return EXTRACTS[extract] + (fold_depth(k) - 2 if extract == "fold"
+                                else 0)
 
 
 def out_width(k: int, extract: str) -> int:
@@ -342,6 +404,13 @@ def ivf_list_scan_topk(storage: torch.Tensor, indices: torch.Tensor,
 
 
 ivf_list_scan_topk.launches = 0
+ivf_list_scan_topk.by_body = {"core": 0, "hopper": 0}
+
+
+def _aligned(t):
+    """``t``, or a copy where its address is not 16-byte aligned (the
+    Hopper body's cp.async loads)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
@@ -381,8 +450,14 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
                 ct=f32(centers), sv=f32(scale) if vec else None,
                 rs=f32(row_scale), pc=f32(pq_centers))
     w = out_width(k, extract)
-    code = EXTRACTS[extract] + (fold_depth(k) - 2 if extract == "fold"
-                                else 0)
+    body = (binned_deep_body(kind, bf16, d) if extract == "binned_deep"
+            else "core")
+    if body == "hopper":
+        # the launch returns its CUDA error where the budget is exceeded
+        st = _aligned(st)
+        args.update(xn=_aligned(args["xn"]), kp=_aligned(args["kp"]),
+                    rs=_aligned(args["rs"]))
+    code = extract_code(extract, k, body)
     out_d = torch.empty((nb, G, w), dtype=torch.float32, device=dev)
     out_i = torch.empty((nb, G, w), dtype=torch.int32, device=dev)
 
@@ -404,7 +479,12 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
                 nw, p, pl, nb, G, k, metric_kind, int(bf16), code,
                 ptr(out_d), ptr(out_i), stream)
     _build.check(lib, "ivf_list_scan_topk", rc)
-    ivf_list_scan_topk.launches += 1
+    # counted on the module attribute, which a stand-in may replace
+    counted = ivf_list_scan_topk
+    counted.launches += 1
+    by_body = getattr(counted, "by_body", None)
+    if by_body is not None:
+        by_body[body] = by_body.get(body, 0) + 1
     return out_d, out_i
 
 

@@ -9,10 +9,12 @@ For ``fused_knn_topk.cu`` and ``ivf_list_scan_topk.cu`` (or the
 1, 2, or ``--stages``), nvcc compiles a cubin (all twelve at once) for
 ``sm_90a`` with the flags of ``ops/_build.py`` and ``cuobjdump -sass``
 lists its functions; each instruction is kept without its address and
-encoding. Every function of DIR_A is matched to DIR_B's of the same name,
-where a kernel that gained an extraction-arm template argument in DIR_B
-is matched at the exact arm (0): ``ivf_list_scan_topk_kernel<...,
-(int)0>`` to ``ivf_list_scan_topk_kernel<...>``,
+encoding (functions only DIR_B has, such as a new kernel, are listed
+apart and not compared). Every function of DIR_A is matched to DIR_B's
+of the same name, where a kernel that gained an extraction-arm template
+argument in DIR_B is matched at the exact arm (0):
+``ivf_list_scan_topk_kernel<..., (int)0>`` to
+``ivf_list_scan_topk_kernel<...>``,
 ``fused_knn_topk_kernel<T, (int)0>`` to ``fused_knn_topk_kernel<T>`` and
 ``ivf_pq4_scan_topk_kernel<(int)0>`` to the untemplated kernel; branch
 labels are numbered anew in each function. Prints, per function, whether
@@ -103,7 +105,8 @@ def main() -> int:
     ap.add_argument("--sources", nargs="+", default=list(SOURCES))
     ap.add_argument("--stages", nargs="+", type=int, default=[0, 1, 2])
     args = ap.parse_args()
-    total = {"functions": 0, "equal": 0, "differ": [], "missing": []}
+    total = {"functions": 0, "equal": 0, "differ": [], "missing": [],
+             "only_in_b": []}
     with tempfile.TemporaryDirectory() as tmp:
         # every build at once, one nvcc each
         jobs = {(tag, src, st): _compile(root, src, st, tmp, tag)
@@ -117,6 +120,8 @@ def main() -> int:
             for st in args.stages:
                 a = sass(jobs["a", src, st][0])
                 b = sass(jobs["b", src, st][0])
+                total["only_in_b"] += [f"{src} RTT_STAGES={st} {key[:100]}"
+                                       for key in b if key not in a]
                 for key, ins in a.items():
                     total["functions"] += 1
                     tag = f"{src} RTT_STAGES={st} {key[:100]}"
