@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              residual queries, L2 and inner product, k from 1 to 256, rot
              20 to 128, bf16 and f32 operands, empty slots; its packed
              arms — i4, RaBitQ sign bits with the row scale (rot off a
-             whole word too), pq4 (bit for bit) — and the int8 arm with
+             whole word too), pq4 (bit for bit on the core's kernel) —
+             and the int8 arm with
              per-list scales on the same kinds of cases; for the
              nn-descent join C < K, K = 1, K = 128, d off a multiple of 4
              and duplicate ids, then, on small integers (every distance
@@ -36,7 +37,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              body), and refused at cap 128; binned_deep through its
              Hopper body (int8, i4 and sign-bit rows, rot 40 to 128, k 1
              to 256, caps 256 to 640, L2, inner product and cosine, G off
-             a multiple of 64), bit for bit on small integers; the fold
+             a multiple of 64), bit for bit on small integers; the pq4
+             arm through its Hopper body (exact, binned, binned_deep; k 1
+             to 64, p 24 to 96 at pq_len 1 and 2, L2 and inner product,
+             caps 256 to 640 and 390, a padding bucket), bit for bit on
+             small integers, and refused past its shared memory; the fold
              arms of both kernels, unmerged buffers bit for bit: kernel
              1's for every metric, f32 and bf16, R = 2, 3, 4
              and each tile of tuning.FUSED_TOPK_TILES with n off the tile,
@@ -99,7 +104,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (0.95), on the indexes, queries and truth of phases 4, 6 and
              7: IVF-Flat (binned at k=10), IVF-PQ int8 (binned at k=10)
              and its refined search (binned_deep at 30, refined to 10),
-             the i4, raw i4 and pq4 rungs (binned at k=10) and RaBitQ
+             the i4, raw i4 and pq4 rungs (binned at k=10), pq4's refined
+             search (binned_deep at 30, refined to 10) and RaBitQ
              (binned_deep at 40, refined to 10): recall@10, QPS, kernel
              2's launches by arm, a profile, and the arm timed at the
              search's shapes by stage beside its plain version and bound.
@@ -130,9 +136,14 @@ expanded form's terms, ||q||^2 + ||c||^2, whose rounding it inherits),
 and ids agree exactly wherever a distance is not within that tolerance of
 its neighbour in the row (a tie). The int8, i4 and sign-bit arms'
 residual queries, their qaux and the operand rounding are computed in one
-order by both, so only the dots' sum order differs. The pq4 arm, and the
-beam step, and their plain versions round and sum in one fixed order, so
-they must agree bit for bit. The binned and fold arms keep what the
+order by both, so only the dots' sum order differs. The core's pq4
+kernel, and the beam step, and their plain versions round and sum in one
+fixed order, so they must agree bit for bit; the pq4 Hopper body (bf16
+operands) adds the same table entries in the same order on the tensor
+cores, whose f32 sums may truncate where the plain version rounds to
+nearest: bit for bit on small integers (every partial sum exact), else
+within ``pq4_atol`` with equal ids on tie-free keys (compare's join
+rule). The binned and fold arms keep what the
 reference's bin rules keep from the same distances, so wherever the exact
 arm agrees bit for bit, they must too; except the binned_deep arm's Hopper
 body (int8, i4 and sign-bit rows under bf16 operands), whose dots run on
@@ -140,8 +151,9 @@ the tensor cores and sum the exact products in another order: it is held
 bit for bit on small-integer cases, where every dot is exact in any
 order, and elsewhere to the tolerance with equal ids on tie-free keys.
 The CAGRA self-search, the refined IVF-PQ first stage and RaBitQ's first
-stage must take that body (launches by body printed), or the run fails
-after its report.
+stage must take that body, and every launch of the pq4 rung's exact,
+default and refined default searches the pq4 Hopper body (launches by
+body printed), or the run fails after its report.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -159,6 +171,9 @@ import torch
 
 H100_HBM_BYTES_PER_S = 3.35e12        # NVIDIA data sheet, SXM
 H100_F32_FLOPS = 67e12                 # f32 on the CUDA cores
+# one f32 add (or FMA) a lane a clock: an add takes an FMA's issue slot
+# but counts one operation, not two
+H100_F32_ADDS = H100_F32_FLOPS / 2
 H100_BF16_FLOPS = 989e12               # bf16 tensor cores, dense
 RTOL = ATOL = 1e-4
 F32, BF16 = torch.float32, torch.bfloat16
@@ -214,16 +229,22 @@ def sift_like(n: int, d: int, seed: int, device, intrinsic: int = 16,
     return out
 
 
-def compare(name, kd, ki, pd, pi, atol=ATOL, join=False) -> dict:
+def compare(name, kd, ki, pd, pi, atol=ATOL, join=False,
+            hidden=False) -> dict:
     """Kernel output (kd, ki) against the plain version's (pd, pi); raises
     beyond tolerance. ``atol`` may be a per-row tensor. Rows are sorted,
     so a tie is a distance within tolerance of its neighbour in the plain
-    row. For the local join and kernel 2's binned_deep Hopper body
-    (``join``), whose errors are those of the expanded form and whose
+    row. For the local join and kernel 2's Hopper bodies (``join``),
+    whose errors are those of the expanded form and whose
     rows end at K (k), a tie is also one in the
     kernel's row, and in the last column, where the rival past the row's
     end is unseen, two different ids at distances within tolerance of
-    each other.
+    each other. With ``hidden`` (the binned arms on the pq4 Hopper body,
+    whose sums differ from the plain version's by up to the tolerance) a
+    bin lists one (binned_deep: four) of its candidates, so a near-tie
+    inside a bin swaps the listed id at any column, its rival unseen in
+    the row: two different ids at distances within tolerance count as a
+    tie in every column (their number is printed).
     Returns the max distance difference and the number of tie-free keys
     compared."""
     kd = kd.reshape(-1, kd.shape[-1]).float()
@@ -254,12 +275,19 @@ def compare(name, kd, ki, pd, pi, atol=ATOL, join=False) -> dict:
         tied[:, :-1] |= gap <= tol[:, :-1]
     if join:
         tied[:, -1] |= (ki[:, -1] != pi[:, -1]) & (diff[:, -1] <= tol[:, -1])
+    swaps = 0
+    if hidden:
+        swapped = fin & ~tied & (ki != pi) & (diff <= tol)
+        swaps = int(swapped.sum())
+        tied |= swapped
     keyed = fin & ~tied
     n_keyed = int(keyed.sum())
     bad = keyed & (ki != pi)
     n_differ = int(bad.sum())
     log(f"  {name}: max |d| diff {max_err:.3g}, ids differ on {n_differ} "
-        f"of {n_keyed} tie-free keys")
+        f"of {n_keyed} tie-free keys"
+        + (f" ({swaps} ids swapped within a bin at distances within "
+           f"tolerance)" if hidden else ""))
     if n_differ:
         r, c = [int(v) for v in bad.nonzero()[0]]
         raise SmokeFailure(
@@ -298,6 +326,63 @@ def deep_atol(args, kw) -> torch.Tensor:
         qa = qaux.float()[q]
     xn = norms.float()[bl.long()].amax(1)[:, None]
     return (4e-6 * (qa + xn) + ATOL).reshape(-1)
+
+
+def pq4_atol(args, kw) -> torch.Tensor:
+    """Per-row absolute tolerance of kernel 2's pq4 Hopper body against
+    its plain version, one value a (bucket, query slot) row. Each of the
+    p k-steps adds one exact bf16 table entry to an f32 sum, in the plain
+    version's order, but the tensor cores may truncate that sum where the
+    plain version rounds it to nearest: at most 2 ulps of the running sum
+    a step, 2^-22 M, where M = sum over s of max over v |lut[q, s, v]|
+    bounds every partial sum. By Cauchy-Schwarz M <= ||qv|| W, W =
+    sqrt(sum over s of max over v ||pq_centers[s, v]||^2), with 2% for
+    the bf16 rounding of qv, the codebook and the entries; qv is q - c of
+    the row's list (L2, residual) or q (inner product). A dot then
+    differs by at most p 2^-22 M and a distance (2 dot under L2) by p
+    2^-21 M, plus ATOL."""
+    _, _, _, bl, bq, queries = args[:6]
+    q = bq.long().clamp_min(0)
+    qf = queries.float()
+    c = kw.get("centers")
+    rn = torch.empty(bq.shape, device=bq.device)
+    for b0 in range(0, bq.shape[0], 256):
+        r = qf[q[b0:b0 + 256]]
+        if c is not None:
+            r = r - c.float()[bl.long()[b0:b0 + 256]][:, None, :]
+        rn[b0:b0 + 256] = (r * r).sum(2).sqrt()
+    return _pq4_bound(kw["pq_centers"], rn).reshape(-1)
+
+
+def scan_tolerance(body: str, args, kw) -> dict:
+    """``compare``'s keywords for kernel 2's launch on ``body`` (a key of
+    ``ivf_list_scan_topk.by_body``) at ``args``, ``kw``: the core at
+    ATOL; the binned_deep Hopper body at ``deep_atol`` and the pq4 Hopper
+    body at ``pq4_atol``, both under the join rule, the pq4 body's binned
+    arms also hiding a bin's near-tied rival (``hidden``)."""
+    if body == "core":
+        return {"atol": ATOL}
+    atol = {"hopper": deep_atol, "pq4_hopper": pq4_atol}[body](args, kw)
+    return {"atol": atol, "join": True,
+            "hidden": body == "pq4_hopper" and kw.get(
+                "extract", "exact") in ("binned", "binned_deep")}
+
+
+def _pq4_bound(pq_centers, rn) -> torch.Tensor:
+    """``pq4_atol``'s p 2^-21 1.02 W ||qv|| + ATOL for the residual norms
+    ``rn``."""
+    pqc = pq_centers.float()
+    w = float((pqc * pqc).sum(2).amax(1).sum().sqrt())
+    return pqc.shape[0] * 2.0 ** -21 * 1.02 * w * rn + ATOL
+
+
+def pq4_search_atol(ix, q) -> torch.Tensor:
+    """``pq4_atol`` for a pq4 index's search results, one value a query:
+    the largest residual norm over the index's lists, in the rotated
+    space the search scores in."""
+    qr = q.float() @ ix.rotation.float().T
+    return _pq4_bound(ix.pq_centers,
+                      torch.cdist(qr, ix.centers_rot.float()).amax(1))
 
 
 def join_atol(q, data, norms, qn, ip) -> torch.Tensor:
@@ -505,14 +590,19 @@ def phase_small_parity_packed(dev, g) -> None:
     versions: L2 and inner product, with and without keep, k from 1 to
     256, rot 24 to 128 (RaBitQ at 40 and 100, off a whole word), bf16 and
     f32 operands, empty slots, an empty list and one shorter than k. The
-    pq4 arm and its plain version sum in one order, so they must agree
-    bit for bit; the others sum the dots in other orders (the module's
-    tolerance). A pq4 call whose tables overflow a block's shared memory
-    must be refused by the launch, and the next launch must still run."""
+    core's pq4 kernel (f32 operands here) and its plain version sum in
+    one order, so they must agree bit for bit; the pq4 Hopper body (bf16
+    operands) adds the same entries in the same order but accumulates on
+    the tensor cores (``pq4_atol``, with compare's join rule;
+    ``phase_small_parity_pq4`` holds its bits on small integers); the
+    others sum the dots in other orders (the module's tolerance). A pq4
+    call whose tables overflow a block's shared memory must be refused by
+    the launch, and the next launch must still run."""
     from raft_tpu_torch.ops import ivf_scan
 
     log("parity (small, ragged): ivf_list_scan_topk packed arms and "
         "per-list scales")
+    by_body = ivf_scan.ivf_list_scan_topk.by_body
     C, cap, nb, G, m = 12, 384, 30, 256, 400
     L2, IP = ivf_scan.L2, ivf_scan.IP
     for arm, rot, p, pl, k, mk, filt, cd in [
@@ -553,15 +643,21 @@ def phase_small_parity_packed(dev, g) -> None:
         if mk == L2:
             kw["centers"] = c
             xn = torch.rand(C, cap, generator=g, device=dev) * 100 + 10
+        pq4_hopper = by_body.get("pq4_hopper", 0)
         kd, ki = ivf_scan.ivf_list_scan_topk(storage, ids, sizes, bl, bq, q,
                                              None, xn, kp, **kw)
+        hopper = by_body.get("pq4_hopper", 0) > pq4_hopper
         pd, pi = ivf_scan.ivf_list_scan_topk_plain(storage, ids, sizes, bl,
                                                    bq, q, None, xn, kp, **kw)
         name = (f"ivf_list_scan_topk {arm} rot={rot}"
                 + (f" p={p}" if arm == "pq4" else "")
-                + f" k={k} metric={mk} keep={filt} {cd}")
-        compare(name, kd, ki, pd, pi)
-        if arm == "pq4" and not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+                + f" k={k} metric={mk} keep={filt} {cd}"
+                + (" (pq4 Hopper body)" if hopper else ""))
+        compare(name, kd, ki, pd, pi, **scan_tolerance(
+            "pq4_hopper" if hopper else "core",
+            (storage, ids, sizes, bl, bq, q), kw))
+        if arm == "pq4" and not hopper and \
+                not (torch.equal(kd, pd) and torch.equal(ki, pi)):
             raise SmokeFailure(f"{name}: not bit for bit")
     # pq4 tables past a block's shared memory (16 queries x 256 subspaces
     # x 16 f32 entries, k = 256): the launch must refuse with its CUDA
@@ -694,15 +790,22 @@ def phase_small_parity_binned(dev) -> None:
         ed, ei = ivf_scan.ivf_list_scan_topk(*args, **kw)
         epd, epi = ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
         exact_bits = torch.equal(ed, epd) and torch.equal(ei, epi)
-        hopper = by_body.get("hopper", 0)
+        before = dict(by_body)
         kd, ki = ivf_scan.ivf_list_scan_topk(*args, extract=ex, **kw)
         pd, pi = ivf_scan.ivf_list_scan_topk_plain(*args, extract=ex, **kw)
-        compare(name, kd, ki, pd, pi)
+        pq4_hopper = by_body.get("pq4_hopper", 0) > before.get("pq4_hopper",
+                                                               0)
+        compare(name + (" (pq4 Hopper body)" if pq4_hopper else ""), kd, ki,
+                pd, pi, **scan_tolerance(
+                    "pq4_hopper" if pq4_hopper else "core", args,
+                    dict(kw, extract=ex)))
         same = torch.equal(kd, pd) and torch.equal(ki, pi)
         bit_exact.setdefault(arm, []).append(same)
-        # the Hopper body sums the dots in another order: its bits are
-        # held on small integers (phase_small_parity_deep)
-        if exact_bits and not same and by_body.get("hopper", 0) == hopper:
+        # the Hopper bodies accumulate the dots otherwise: their bits are
+        # held on small integers (phase_small_parity_deep, _pq4)
+        core = not pq4_hopper and by_body.get("hopper", 0) == before.get(
+            "hopper", 0)
+        if exact_bits and not same and core:
             raise SmokeFailure(f"{name}: the exact arm is bit for bit its "
                                "plain version's, the binned arm is not")
     log("  bit for bit per storage kind (binned arm vs plain version): "
@@ -732,7 +835,8 @@ def phase_small_parity_binned(dev) -> None:
 def small_integers(g, dev, args, kw):
     """The case with every dot exact in any summation order: queries,
     centers, norms and qaux small integers, scales 1, row scales powers of
-    two, int8 rows in [-20, 20] (i4 and sign words are small already)."""
+    two, int8 rows in [-20, 20], a pq4 codebook in [-3, 3] (i4 and sign
+    words are small already)."""
     def ints(t, lo, hi):
         return torch.randint(lo, hi + 1, t.shape, generator=g,
                              device=dev).to(t.dtype)
@@ -751,6 +855,8 @@ def small_integers(g, dev, args, kw):
         kw["scale"] = torch.ones_like(kw["scale"])
     if kw.get("row_scale") is not None:
         kw["row_scale"] = 2.0 ** ints(kw["row_scale"], -2, 1)
+    if kw.get("pq_centers") is not None:
+        kw["pq_centers"] = ints(kw["pq_centers"], -3, 3)
     return tuple(args), kw
 
 
@@ -827,6 +933,87 @@ def phase_small_parity_deep(dev, g) -> None:
                                "plain version differ")
     log(f"  Hopper body bit for bit on {n_bits} cases (all small-integer "
         "ones among them)")
+
+
+def phase_small_parity_pq4(dev) -> None:
+    """Kernel 2's pq4 arm through its Hopper body
+    (``csrc/ivf_scan_pq4.cuh``) against the plain version: the exact,
+    binned and binned_deep arms at k 1, 10, 30 and 64, p 24, 48 and 96 at
+    pq_len 1 and 2, L2 with residual queries and inner product, caps 256
+    to 640 and one off a multiple of 4 (the ring's 4-byte copies), with
+    binned_case's duplicate rows, an empty list, one of 5 rows, tails of a
+    256-row tile, the keep filter, empty query slots, a padding bucket
+    (every slot empty) and G off a multiple of 32. Every launch must take
+    the Hopper body. On small integers every table entry and partial sum
+    is exact, so kernel and plain version must agree bit for bit; on
+    random tables the tensor cores' accumulation holds ``pq4_atol`` with
+    compare's join rule. Then a launch past the body's shared memory (p =
+    128 at binned_deep, routed to the body by a stand-in for
+    ``pq4_body``) must be refused, and the next launch still run."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    log("parity (small, ragged): ivf_list_scan_topk pq4, Hopper body")
+    g = torch.Generator(device=dev).manual_seed(31)
+    L2, IP = ivf_scan.L2, ivf_scan.IP
+    by_body = ivf_scan.ivf_list_scan_topk.by_body
+    n_bits = 0
+    for ex, cap, p, pl, k, mk, filt, G, small in [
+            ("exact", 384, 24, 1, 1, L2, True, 256, True),
+            ("exact", 256, 48, 2, 64, IP, False, 100, True),
+            ("exact", 640, 96, 1, 10, L2, True, 200, True),
+            ("exact", 390, 96, 1, 30, L2, True, 130, True),
+            ("binned", 384, 96, 1, 10, L2, True, 256, True),
+            ("binned", 256, 24, 1, 64, IP, True, 100, True),
+            ("binned", 640, 48, 2, 1, L2, False, 200, True),
+            ("binned_deep", 384, 96, 1, 30, L2, True, 256, True),
+            ("binned_deep", 640, 48, 2, 64, IP, False, 100, True),
+            ("binned_deep", 256, 24, 1, 10, L2, True, 200, True),
+            ("exact", 384, 96, 1, 10, L2, True, 256, False),
+            ("binned", 384, 96, 1, 10, L2, True, 256, False),
+            ("binned_deep", 640, 96, 1, 30, L2, True, 200, False),
+            ("exact", 256, 48, 2, 64, IP, False, 100, False),
+            ("binned_deep", 384, 24, 1, 1, IP, True, 130, False)]:
+        args, kw = scan_case(g, dev, "pq4", cap, p * pl, p, pl, k, mk, filt,
+                             "bf16", G=G)
+        args[4][4] = -1                      # a padding bucket
+        if small:
+            args, kw = small_integers(g, dev, args, kw)
+        kw["extract"] = ex
+        name = (f"ivf_list_scan_topk pq4 {ex} (Hopper body) cap={cap} p={p}"
+                f" pq_len={pl} k={k} metric={mk} keep={filt} G={G}"
+                + (" small integers" if small else ""))
+        before = by_body.get("pq4_hopper", 0)
+        kd, ki = ivf_scan.ivf_list_scan_topk(*args, **kw)
+        if by_body.get("pq4_hopper", 0) != before + 1:
+            raise SmokeFailure(f"{name}: did not take the Hopper body")
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
+        compare(name, kd, ki, pd, pi, **scan_tolerance("pq4_hopper", args,
+                                                       kw))
+        same = torch.equal(kd, pd) and torch.equal(ki, pi)
+        n_bits += same
+        if small and not same:
+            raise SmokeFailure(f"{name}: every table entry and sum is exact, "
+                               "yet kernel and plain version differ")
+    log(f"  pq4 Hopper body bit for bit on {n_bits} cases (all small-integer "
+        "ones among them)")
+    big, big_kw = scan_case(g, dev, "pq4", 384, 128, 128, 1, 30, L2, True,
+                            "bf16")
+    big_kw["extract"] = "binned_deep"
+    route = ivf_scan.pq4_body
+    ivf_scan.pq4_body = lambda *a: "hopper"
+    try:
+        ivf_scan.ivf_list_scan_topk(*big, **big_kw)
+    except RuntimeError as e:
+        log(f"  pq4 Hopper body p=128 binned_deep refused: {e}")
+    else:
+        raise SmokeFailure("the pq4 Hopper body launched p=128 binned_deep "
+                           "past a block's shared memory")
+    finally:
+        ivf_scan.pq4_body = route
+    again = ivf_scan.ivf_list_scan_topk(*args, **kw)
+    if not (torch.equal(again[0], kd) and torch.equal(again[1], ki)):
+        raise SmokeFailure("the pq4 Hopper body after the refused launch "
+                           "differs from the same call before it")
 
 
 def sorted_rows(d, i):
@@ -1376,8 +1563,10 @@ def scan_work(args, kw):
     slots, a query row) once; operations count the
     valid (query, row) pairs only: 2 d per pair on the dense, int8, i4 and
     sign-bit arms (bf16 tensor-core rate under bf16 operands, else f32),
-    and on the pq4 arm p table adds per pair plus 2 pq_len per table entry
-    of each valid (bucket, query) (f32 CUDA-core rate)."""
+    and on the pq4 arm p table adds per pair plus pq_len FMAs per table
+    entry of each valid (bucket, query), each at one a lane a clock
+    (``H100_F32_ADDS``); the one-hot contraction's tensor-core figure, 2 x
+    16 p operations a pair at the bf16 rate, is named beside it."""
     from raft_tpu_torch.ops import ivf_scan
 
     (storage, indices, list_sizes, bucket_list, bucket_q, queries, qaux,
@@ -1409,8 +1598,11 @@ def scan_work(args, kw):
         "bf16" if queries.dtype == torch.bfloat16 else "f32")
     if kind == ivf_scan.PQ4:
         p, _, pl = pqc.shape
-        ops = pairs * p + float(valid_q.sum()) * p * 16 * pl * 2
-        return bytes_, ops, H100_F32_FLOPS, f"{p} table adds a pair, f32"
+        ops = pairs * p + float(valid_q.sum()) * p * 16 * pl
+        onehot_ms = 2.0 * 16 * p * pairs / H100_BF16_FLOPS * 1e3
+        return bytes_, ops, H100_F32_ADDS, (
+            f"{p} table adds a pair at the f32 add rate; the one-hot "
+            f"contraction on the bf16 tensor cores {onehot_ms:.3f} ms")
     peak = H100_BF16_FLOPS if cd == "bf16" else H100_F32_FLOPS
     return bytes_, 2.0 * d * pairs, peak, f"{cd} operands"
 
@@ -1418,12 +1610,13 @@ def scan_work(args, kw):
 def measure_ivf(args, kw, launches, arm: str = "",
                 plain_reps: int = 2) -> dict:
     """Kernel 2 at a path's captured inputs: agreement with the plain
-    version, time, stage split (not for the pq4 arm, whose kernel has no
-    stage builds), plain time (``plain_reps`` calls after one warm-up)
-    and bound. ``arm`` names the storage or extraction arm in the report
-    ("" for the float arm's exact extraction); ``"bit_exact"`` says
-    whether kernel and plain version agreed bit for bit (not a key of the
-    JSON line)."""
+    version, time, stage split (not for the core's pq4 kernel, which has
+    no stage builds; the pq4 Hopper body has them), plain time
+    (``plain_reps`` calls after one warm-up) and bound. ``arm`` names the
+    storage or extraction arm in the report ("" for the float arm's exact
+    extraction); ``"bit_exact"`` says
+    whether kernel and plain version agreed bit for bit and ``"body"``
+    which body the launch took (neither a key of the JSON line)."""
     from raft_tpu_torch.ops import ivf_scan
 
     storage, bucket_q, queries = args[0], args[4], args[5]
@@ -1445,24 +1638,21 @@ def measure_ivf(args, kw, launches, arm: str = "",
         return ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
 
     kd, ki = kern()
-    hopper = (ivf_scan.ivf_list_scan_topk.by_body.get("hopper", 0)
-              > bodies.get("hopper", 0))
+    body = next((b for b, c in ivf_scan.ivf_list_scan_topk.by_body.items()
+                 if c > bodies.get(b, 0)), "core")
     pd, pi = plain()
     exact = torch.equal(kd, pd) and torch.equal(ki, pi)
     if kw.get("extract") == "fold":
         # the fold's rows are its unextracted slots, sorted for compare
         kd, ki = sorted_rows(kd, ki)
         pd, pi = sorted_rows(pd, pi)
-    # the Hopper body: deep_atol, and near-ties in either row or past its
-    # end (compare's join rule), as kernel 3's
     err = compare(f"{name} (path shapes)", kd, ki, pd, pi,
-                  atol=deep_atol(args, kw) if hopper else ATOL, join=hopper)
-    log(f"  {name}: kernel ({'Hopper' if hopper else 'core'} body) and "
-        f"plain version "
+                  **scan_tolerance(body, args, kw))
+    log(f"  {name}: kernel ({body} body) and plain version "
         f"{'equal bit for bit' if exact else 'differ within tolerance'}")
     del kd, ki, pd, pi
     ms = cuda_ms(kern, reps=10)
-    if kw.get("pq_centers") is None:
+    if kw.get("pq_centers") is None or body == "pq4_hopper":
         stage_split(name, kern, ms)
     plain_ms = cuda_ms(plain, reps=plain_reps)
     ivf_scan.ivf_list_scan_topk.launches = before   # measurement launches
@@ -1476,14 +1666,16 @@ def measure_ivf(args, kw, launches, arm: str = "",
         f"{bytes_ / 1e9:.3f} GB -> bound {max(t_bytes, t_ops):.3f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
     return {"name": name, "route": "cuda",
-            "source": ("raft_tpu_torch/ops/csrc/ivf_scan_deep.cuh" if hopper
-                       else "raft_tpu_torch/ops/csrc/ivf_list_scan_topk.cu"),
+            "source": "raft_tpu_torch/ops/csrc/" + {
+                "hopper": "ivf_scan_deep.cuh",
+                "pq4_hopper": "ivf_scan_pq4.cuh"}.get(
+                    body, "ivf_list_scan_topk.cu"),
             "replaces": _ARM_SITE[arm.split()[0] if arm else ""],
             "launches": launches, "max_abs_err": err["max_abs_err"],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "bit_exact": exact}
+            "library_ms": None, "bit_exact": exact, "body": body}
 
 
 def default_search(label: str, first, q, truth, k: int,
@@ -1552,7 +1744,8 @@ def default_search(label: str, first, q, truth, k: int,
     # the Hopper body sums the dots in another order (its bits are held on
     # small integers, phase_small_parity_deep); the core's arms keep what
     # the exact arm keeps
-    if not kern["bit_exact"] and not bodies.get("hopper"):
+    if not kern["bit_exact"] and not (bodies.get("hopper")
+                                      or bodies.get("pq4_hopper")):
         ekw = dict(kw, extract="exact")
         ed, ei = ivf_scan.ivf_list_scan_topk(*a, **ekw)
         pd, pi = ivf_scan.ivf_list_scan_topk_plain(*a, **ekw)
@@ -2157,8 +2350,12 @@ def phase_small_ivf_pq_rungs(dev) -> None:
                                    "launch kernel 2")
             pd, pi = ivf_pq.search(dataclasses.replace(
                 sp, scan_impl="pallas_interpret"), cpu_ix, q.cpu(), 10)
+            # bf16 pq4 searches take the pq4 Hopper body
+            pq4 = kind == "pq4"
             compare(f"ivf_pq.search 20k x 96, 64 lists, {kind} cache, "
-                    f"{what} arm", kd.cpu(), ki.cpu(), pd, pi)
+                    f"{what} arm", kd.cpu(), ki.cpu(), pd, pi,
+                    atol=pq4_search_atol(ix, q).cpu() if pq4 else ATOL,
+                    join=pq4, hidden=pq4 and what == "binned")
 
 
 def timed_patches(secs: dict, patches):
@@ -2406,6 +2603,7 @@ def ivf_pq_rungs_path(dev, x, q, truth, base, k=10, n_probes=128,
             out_d, out_i = ivf_pq.search(sp, index, q, kc)
             torch.cuda.synchronize()
             launches = rec.launches
+            bodies = dict(rec.by_body)
         finally:
             ivf_scan.ivf_list_scan_topk = orig
             for mod, attr, fn in saved:
@@ -2488,11 +2686,21 @@ def ivf_pq_rungs_path(dev, x, q, truth, base, k=10, n_probes=128,
                 f"{name} (DEEP-10M rung)", lambda: ivf_pq.search(
                     dsp, index, q, k), q, truth, k, raw,
                 raw_floor=IVF_PQ_RECALL_FLOOR)
+        # pq4's refined search at the default target: its first stage of
+        # 3k binned_deep (the pq4 Hopper body), refined to k
+        refined_dflt = None
+        if kind == "pq4":
+            refined_dflt = default_search(
+                f"{name} refined (DEEP-10M rung)", lambda: ivf_pq.search(
+                    dsp, index, q, 3 * k), q, truth, k, raw,
+                refine=lambda c: refine.refine(x, q, c, k, device=dev),
+                exact_refined=rrec, refined_floor=REFINED_RECALL_FLOOR)
         out[name] = {"kernel": kern, "make_s": make_s, "secs": secs,
                      "cache_gb": cache_gb, "recall": raw, "qps": q.shape[0]
                      / med, "refined_recall": rrec, "refined_qps": rqps,
                      "refined_by": refined_by, "matched": matched,
-                     "default": dflt}
+                     "default": dflt, "default_refined": refined_dflt,
+                     "launches": launches, "by_body": bodies}
         del index, captured, out_d, out_i
         torch.cuda.empty_cache()
     return out
@@ -2644,6 +2852,7 @@ def main() -> int:
         phase_build()
         phase_small_parity(dev)
         phase_small_parity_binned(dev)
+        phase_small_parity_pq4(dev)
         phase_small_parity_fold(dev)
         phase_small_parity_graph(dev)
         phase_small_search(dev)
@@ -2681,8 +2890,13 @@ def main() -> int:
         measure_ivf(*pres["captured"], pres["by_arm"].get(arm, 0),
                     arm=f"{arm} int8 (CAGRA self-search)")
         # one row per packed arm, from its DEEP-10M rung (the raw i4
-        # cache's run of the i4 arm is reported above it, not listed)
+        # cache's run of the i4 arm is reported above it, not listed); the
+        # pq4 rung's binned and binned_deep arms from its default searches
         kernels += [rres[name]["kernel"] for name in ("i4", "pq4", "rabitq")]
+        kernels += [dict(rres["pq4"][key]["kernel"],
+                         name=f"ivf_list_scan_topk:pq4 {arm}")
+                    for key, arm in (("default", "binned"),
+                                     ("default_refined", "binned_deep"))]
         # one row per binned arm: binned from the IVF-Flat main path's
         # default search, binned_deep from the refined IVF-PQ search's
         # first stage; the other default runs are reported above
@@ -2732,9 +2946,22 @@ def main() -> int:
                 bodies.get("hopper", 0) != arms["binned_deep"]:
             failed.append(f"{label}: its binned_deep launches did not all "
                           f"take the Hopper body ({bodies})")
+    # every bf16 pq4 launch of the pq4 rung's path must take the pq4
+    # Hopper body (ops/ivf_scan.pq4_body): the exact search, the default
+    # (binned at k) and the refined default (binned_deep at 3k)
+    pq4 = rres["pq4"]
+    for label, n, bodies in [
+            ("IVF-PQ rung pq4 exact search", pq4["launches"],
+             pq4["by_body"]),
+            *((d["label"], sum(d["launches"].values()), d["by_body"])
+              for d in (pq4["default"], pq4["default_refined"]))]:
+        log(f"pq4 body, {label}: {n} launches, by body {bodies}")
+        if n <= 0 or bodies.get("pq4_hopper", 0) != n:
+            failed.append(f"{label}: its pq4 launches did not all take the "
+                          f"pq4 Hopper body ({bodies})")
     defaults = ([fres] + dres["defaults"] + [r["default"] for r in
                                               rres.values()]
-                + [flat_fold] + dres["folds"])
+                + [pq4["default_refined"]] + [flat_fold] + dres["folds"])
     for d in defaults:
         failed += d["failed"]
         k = d["kernel"]
@@ -2760,7 +2987,8 @@ def main() -> int:
                if r["matched"] else ""))
     log(smi)
     log(json.dumps({"kernels": [{key: v for key, v in row.items()
-                                 if key != "bit_exact"} for row in kernels]}))
+                                 if key not in ("bit_exact", "body")}
+                                for row in kernels]}))
     if failed:
         print("chip_smoke: FAILED: " + "; ".join(failed), file=sys.stderr)
         return 1

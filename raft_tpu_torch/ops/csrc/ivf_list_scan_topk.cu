@@ -73,8 +73,16 @@
 // (ivf_scan_deep.cuh, extract code 6): int8, i4 and sign-bit rows with
 // bf16 operands and d <= 128 take it where the caller routes them
 // (ops/ivf_scan.py:binned_deep_body); the other modes keep this file's.
+//
+// The pq4 arm has a second body too, designed for Hopper
+// (ivf_scan_pq4.cuh, extract codes 7-9: exact, binned, binned_deep): the
+// TPU kernel's one-hot contraction on the tensor cores, 32 queries a
+// block, bf16 tables staged once. bf16 operands take it where its block
+// fits (ops/ivf_scan.py:pq4_body); f32 operands, the fold arms and wider
+// tables keep ivf_pq4_scan_topk_kernel below.
 #include "scan_topk.cuh"
 #include "ivf_scan_deep.cuh"
+#include "ivf_scan_pq4.cuh"
 
 using namespace rtt;
 
@@ -508,8 +516,11 @@ static int launch_pq4(const uint32_t* storage, const int* indices,
 // already; extract 0 exact, 1 binned, 2 binned_deep, 3-5 fold at depth
 // R = 2-4 (R >= ceil(k / 64)), 6 binned_deep through the Hopper body
 // (kinds 2-4, round_ops, d <= 128; the int8 kind's d a multiple of 16;
-// storage, norms, keep and row_scale 16-byte aligned); out_d / out_i
-// [nb, G, k], or [nb, G, 128 R] for fold. Returns a cudaError_t code.
+// storage, norms, keep and row_scale 16-byte aligned), 7-9 exact, binned
+// and binned_deep through the pq4 Hopper body (kind 5, round_ops, L2 or
+// inner product, its block within a block's shared memory; storage, norms
+// and keep 16-byte aligned); out_d / out_i [nb, G, k], or [nb, G, 128 R]
+// for fold. Returns a cudaError_t code.
 extern "C" int ivf_list_scan_topk(
     const void* storage, int storage_kind, const void* indices,
     const void* list_sizes, const void* bucket_list, const void* bucket_q,
@@ -520,8 +531,23 @@ extern "C" int ivf_list_scan_topk(
     int round_ops, int extract, void* out_d, void* out_i, void* stream) {
   if (k < 1 || k > KMAX || cap < 1 || d < 1 || nb < 1 || G < 1 ||
       storage_kind < 0 || storage_kind > 5 || extract < kExact ||
-      (extract > kFold4 && extract != deep::kBinnedDeepHopper))
+      (extract > kFold4 && extract != deep::kBinnedDeepHopper &&
+       !pq4h::is_code(extract)))
     return (int)cudaErrorInvalidValue;
+  if (pq4h::is_code(extract)) {
+    if (storage_kind != 5 || scale_vec != nullptr || d != p * pl)
+      return (int)cudaErrorInvalidValue;
+    return pq4h::launch(
+        extract, static_cast<const uint32_t*>(storage),
+        static_cast<const int*>(indices), static_cast<const int*>(list_sizes),
+        static_cast<const int*>(bucket_list),
+        static_cast<const int*>(bucket_q), static_cast<const float*>(queries),
+        static_cast<const float*>(norms), static_cast<const int*>(keep),
+        static_cast<const float*>(centers),
+        static_cast<const float*>(pq_centers), cap, nw, p, pl, nb, G, k,
+        metric, round_ops, static_cast<float*>(out_d),
+        static_cast<int*>(out_i), static_cast<cudaStream_t>(stream));
+  }
   if (extract == deep::kBinnedDeepHopper) {
     if (cap % NBINS != 0 || cap <= NBINS || cap / NBINS > 65536 ||
         (storage_kind >= 3 && (nw < 1 || (storage_kind == 3 && d != 8 * nw) ||

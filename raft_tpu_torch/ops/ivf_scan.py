@@ -92,10 +92,25 @@ int8, i4 and sign-bit rows with bf16 operands at d <= 128 take the Hopper
 body; the rest keep the core's. Both keep what the reference's arm keeps;
 the Hopper body sums each dot's f32 products in another order.
 
+The pq4 arm has two CUDA bodies as well: the core's pq4 kernel (f32
+tables in shared memory, one lookup and add per (query, row, subspace)),
+and one designed for Hopper (``csrc/ivf_scan_pq4.cuh``: the reference's
+one-hot contraction, ``dots += lut_v @ (codes == v)``, as bf16 ``wgmma``
+products of the one-hot codes and the tables, K the 16 code values, 32
+queries a block, the bf16 tables staged once). :func:`pq4_body` routes by
+operand type, arm and shared memory: bf16 operands at the exact, binned
+and binned_deep arms take the Hopper body where its block fits
+(:func:`pq4_smem_bytes`); f32 operands, the fold arms and wider tables
+keep the core's. The Hopper body adds the same table entries in the same
+order, but the tensor cores accumulate in f32 without rounding to
+nearest, so it is bit for bit the plain version only where every partial
+sum is exact.
+
 On a CUDA tensor :func:`ivf_list_scan_topk` launches
 ``csrc/ivf_list_scan_topk.cu`` or raises; on a CPU tensor it runs
 :func:`ivf_list_scan_topk_plain`; nothing else. Its ``launches`` counts
-every launch and ``by_body`` splits them by body ("core", "hopper").
+every launch and ``by_body`` splits them by body ("core", "hopper",
+"pq4_hopper").
 """
 
 from __future__ import annotations
@@ -127,6 +142,12 @@ HOPPER_DEEP = 6
 # and qaux (csrc/ivf_scan_deep.cuh)
 SMEM_LIMIT = 232_448
 _DEEP_SLOTS, _DEEP_STAGES, _DEEP_STATIC = 64 * 128 * 24, 2, 512
+# the extract code of the exact arm through the pq4 Hopper body (binned 8,
+# binned_deep 9), and that body's block (csrc/ivf_scan_pq4.cuh): 32
+# queries, 256-row tiles in 2 ring stages, the exact arm's distance tile
+# rows of 260 floats (k > 32), 256 B of query ids and qaux
+PQ4_HOPPER = 7
+_PQ4_Q, _PQ4_T, _PQ4_STAGES, _PQ4_DIST_LD, _PQ4_STATIC = 32, 256, 2, 260, 256
 
 # the per-list recall budget the binned arm is judged against when the
 # caller does not say (the SearchParams default)
@@ -228,11 +249,65 @@ def deep_smem_bytes(kind: int, rot: int, norms: bool = True,
     return total
 
 
+def _pq4_block_bytes(p: int, k: int, extract: str, norms: bool = True,
+                     keep: bool = True) -> Optional[int]:
+    """:func:`pq4_smem_bytes`' sum, or None for an arm the body does not
+    take."""
+    arms = {"exact": (_PQ4_Q * _PQ4_T * 8 + _PQ4_Q * 8 if k <= 32 else
+                      _PQ4_Q * _PQ4_DIST_LD * 4 + _PQ4_Q * k * 8),
+            "binned": _PQ4_Q * _BINS * 6,
+            "binned_deep": _PQ4_Q * _BINS * 24}
+    if extract not in arms:
+        return None
+    stage = (-(-p // 8) + int(norms) + int(keep)) * _PQ4_T * 4
+    return (_PQ4_Q * p * 32 + _PQ4_STAGES * stage + arms[extract]
+            + _PQ4_STATIC)
+
+
+def pq4_smem_bytes(p: int, k: int, extract: str, norms: bool = True,
+                   keep: bool = True) -> int:
+    """Shared memory of one pq4 Hopper-body block (dynamic and static) for
+    ``p`` subspaces at ``k`` and ``extract``: the bf16 tables (32 queries
+    x p x 16 x 2 B), two ring stages of 256 rows of ceil(p / 8) code words
+    and a word for each side array named, the arm's region (exact at k <=
+    32: 32 x 256 (f32, int32) buffered candidates and 32 counts and
+    thresholds; at k > 32: a 32 x 260 f32 distance tile and 32 k (f32,
+    int32) lists; binned: 32 x 128 slots of 6 B; binned_deep: 32 x 128 x
+    24 B) and 256 B of query ids and qaux. Raises where it exceeds a
+    block's 232,448 B or the body does not take the arm."""
+    total = _pq4_block_bytes(p, k, extract, norms, keep)
+    if total is None:
+        raise ValueError(f"the pq4 Hopper body takes the exact, binned and "
+                         f"binned_deep arms, not {extract!r}")
+    if total > SMEM_LIMIT:
+        raise ValueError(f"the pq4 Hopper body needs {total} B of shared "
+                         f"memory at p={p}, k={k}, {extract}, more than a "
+                         f"block's {SMEM_LIMIT}")
+    return total
+
+
+def pq4_body(round_ops: bool, p: int, pl: int, k: int, extract: str) -> str:
+    """The body a pq4 launch of ``p`` subspaces of ``pl`` components takes
+    at ``k`` and ``extract``: "hopper" (``csrc/ivf_scan_pq4.cuh``) for bf16
+    operands (``round_ops``) at the exact, binned and binned_deep arms
+    where its block fits a block's shared memory with norms and keep
+    (:func:`pq4_smem_bytes`; the sum does not depend on ``pl``, since each
+    table entry takes 2 B whatever its sum's length); else "core" (f32
+    operands, the fold arms, wider tables)."""
+    if not round_ops or p < 1 or pl < 1:
+        return "core"
+    total = _pq4_block_bytes(p, k, extract)
+    return "hopper" if total is not None and total <= SMEM_LIMIT else "core"
+
+
 def extract_code(extract: str, k: int, body: str = "core") -> int:
-    """The C entry's extract code: the arm's, at the fold's depth, or
-    ``HOPPER_DEEP`` for binned_deep through the Hopper body."""
+    """The C entry's extract code: the arm's, at the fold's depth;
+    ``HOPPER_DEEP`` for binned_deep through the Hopper body; or
+    ``PQ4_HOPPER`` plus the arm's for the pq4 Hopper body."""
     if extract == "binned_deep" and body == "hopper":
         return HOPPER_DEEP
+    if body == "pq4_hopper":
+        return PQ4_HOPPER + EXTRACTS[extract]
     return EXTRACTS[extract] + (fold_depth(k) - 2 if extract == "fold"
                                 else 0)
 
@@ -404,7 +479,7 @@ def ivf_list_scan_topk(storage: torch.Tensor, indices: torch.Tensor,
 
 
 ivf_list_scan_topk.launches = 0
-ivf_list_scan_topk.by_body = {"core": 0, "hopper": 0}
+ivf_list_scan_topk.by_body = {"core": 0, "hopper": 0, "pq4_hopper": 0}
 
 
 def _aligned(t):
@@ -450,9 +525,13 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
                 ct=f32(centers), sv=f32(scale) if vec else None,
                 rs=f32(row_scale), pc=f32(pq_centers))
     w = out_width(k, extract)
-    body = (binned_deep_body(kind, bf16, d) if extract == "binned_deep"
-            else "core")
-    if body == "hopper":
+    if kind == PQ4:
+        body = ("pq4_hopper" if pq4_body(bf16, p, pl, k, extract) == "hopper"
+                else "core")
+    else:
+        body = (binned_deep_body(kind, bf16, d) if extract == "binned_deep"
+                else "core")
+    if body != "core":
         # the launch returns its CUDA error where the budget is exceeded
         st = _aligned(st)
         args.update(xn=_aligned(args["xn"]), kp=_aligned(args["kp"]),

@@ -2,7 +2,7 @@
 
     python3 -m raft_tpu_torch.tools.kernel_ab DIR_A DIR_B [DIR_C ...]
                                               [--order ABBA] [--out FILE]
-                                              [--kernels 12|3|2d|...]
+                                              [--kernels 12|3|2d|2q|...]
 
 Each DIR is the root of a checkout (for example a parent commit unpacked
 with ``git archive``). For each letter of ``--order`` (A the first DIR, B
@@ -32,7 +32,20 @@ handed to ``ivf_list_scan_topk`` at the binned_deep arm, held against the
 plain version, and timed whole, by stage and with every list emptied (the
 launch, the queries' preparation and the extraction), with the launches'
 body where the checkout records one and the Hopper body's registers and
-spills where the checkout builds it. Alternating the checkouts (A B B A)
+spills where the checkout builds it. Kernel 2's pq4 arm (``--kernels
+2q``): kernel 2 built at its three stage builds; IVF-PQ's pq4 rung at the
+DEEP-10M configuration (10M x 96 SIFT-like rows, 1024 lists, pq_dim 96
+at 4 bits, the pq4 cache, n_probes 128, 10,000 queries) and three of its
+searches: exact at k 10 (``local_recall_target`` 1.0), the default at k
+10 (binned) and the default refined first stage at k 30 (binned_deep,
+refined to 10), each timed as a pipeline (QPS, median of 5) with its
+recall@10 (raw, refined for the last), its first scan captured and handed
+to ``ivf_list_scan_topk`` at the arm the search took: held against the
+plain version, timed whole, by stage and with every list emptied, with
+the launch's body and the pq4 kernels' registers and spills. Each scan is
+held at the tolerance of the body its launch took (``chip_smoke``'s
+``scan_tolerance``); a disagreement ends the run. Alternating
+the checkouts (A B B A)
 on one card keeps the comparison free of the card's power limit and clocks,
 which differ between machines. Each run prints one JSON line; the last
 line is the list of all runs, also written to ``--out``.
@@ -63,6 +76,9 @@ def _child(root: str, kernels: str) -> dict:
     if "2d" in kernels:
         run.update(_deep(cs, dev, run["kernels"]))
         kernels = kernels.replace("2d", "")
+    if "2q" in kernels:
+        run.update(_pq4(cs, dev, run["kernels"]))
+        kernels = kernels.replace("2q", "")
     if "1" in kernels or "2" in kernels:
         run.update(_scan_kernels(cs, dev, run["kernels"]))
     if "3" in kernels:
@@ -70,15 +86,28 @@ def _child(root: str, kernels: str) -> dict:
     return run
 
 
-def _deep_scan(cs, name, args, kw) -> dict:
-    """One captured scan at kernel 2's binned_deep arm: held against the
-    plain version, timed whole, by stage and with every list emptied, its
-    bound, and the launch's body where the checkout records one."""
+def _tolerance(cs, body, args, kw) -> dict:
+    """``compare``'s keywords for the body the launch took: the
+    checkout's ``scan_tolerance``; a checkout older than that table has at
+    most the binned_deep Hopper body ("hopper"), at ``deep_atol`` under
+    the join rule."""
+    if hasattr(cs, "scan_tolerance"):
+        return cs.scan_tolerance(body, args, kw)
+    if body == "hopper":
+        return {"atol": cs.deep_atol(args, kw), "join": True}
+    return {"atol": cs.ATOL}
+
+
+def _scan_ab(cs, name, args, kw) -> dict:
+    """One captured scan of kernel 2 at the arm ``kw`` names: held against
+    the plain version at the tolerance of the body the launch took, timed
+    whole, by stage and with every list emptied (the launch, the queries'
+    preparation and the extraction), its bound, and the launch's body
+    where the checkout records one."""
     import torch
 
     from raft_tpu_torch.ops import _build, ivf_scan
 
-    kw = dict(kw, extract="binned_deep")
     fn = ivf_scan.ivf_list_scan_topk
     before = dict(getattr(fn, "by_body", {}))
 
@@ -86,37 +115,93 @@ def _deep_scan(cs, name, args, kw) -> dict:
         return ivf_scan.ivf_list_scan_topk(*args, **kw)
 
     kd, ki = kern()
-    body = [b for b, c in getattr(fn, "by_body", {}).items()
-            if c > before.get(b, 0)]
+    body = next((b for b, c in getattr(fn, "by_body", {}).items()
+                 if c > before.get(b, 0)), "core")
     pd, pi = ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
     exact = torch.equal(kd, pd) and torch.equal(ki, pi)
-    # the Hopper body as chip_smoke.measure_ivf holds it (a checkout
-    # without it compares at the module's tolerance)
-    hopper = "hopper" in body and hasattr(cs, "deep_atol")
-    err = cs.compare(f"binned_deep {name}", kd, ki, pd, pi,
-                     atol=cs.deep_atol(args, kw) if hopper else cs.ATOL,
-                     join=hopper)
+    extract = kw.get("extract", "exact")
+    err = cs.compare(f"{extract} {name}", kd, ki, pd, pi,
+                     **_tolerance(cs, body, args, kw))
     del kd, ki, pd, pi
     whole = cs.cuda_ms(kern, reps=10)
     ms = {}
     for st in (0, 1):
         with _build.only_stages(st):
             ms[st] = cs.cuda_ms(kern, reps=10)
-    # every list empty: the launch, the queries' preparation and the
-    # extraction alone (which for the sort does not depend on the data)
     empty = (args[0], args[1], torch.zeros_like(args[2])) + tuple(args[3:])
     empty_ms = cs.cuda_ms(lambda: ivf_scan.ivf_list_scan_topk(*empty, **kw),
                           reps=10)
     bytes_, ops, peak, _ = cs.scan_work(args, kw)
     return {"shape": [list(args[0].shape), list(args[4].shape),
                       list(args[5].shape), kw["k"]],
-            "body": body[0] if body else "core", "bit_exact": exact,
+            "extract": extract, "body": body, "bit_exact": exact,
             "max_abs_err": err["max_abs_err"],
             "tie_free_keys": err["tie_free_keys"], "ms": whole,
             "staging_ms": ms[0], "dots_ms": ms[1] - ms[0],
             "topk_ms": whole - ms[1], "empty_lists_ms": empty_ms,
             "bound_ms": max(bytes_ / cs.H100_HBM_BYTES_PER_S,
                             ops / peak) * 1e3}
+
+
+def _build_scan(match: str) -> list:
+    """Kernel 2 built at its three stage builds; ptxas' lines (registers,
+    spills) of the entry functions whose name holds ``match``, where this
+    checkout builds them."""
+    from raft_tpu_torch.ops import _build
+
+    _build.build_all(names=("ivf_list_scan_topk",),
+                     stage_set=(_build.FULL, 1, 0))
+    log = _build.BUILD_LOG.get("ivf_list_scan_topk", "").splitlines()
+    return [" ".join(log[i:i + 4]) for i, ln in enumerate(log)
+            if "Compiling entry function" in ln and match in ln]
+
+
+def _pq4(cs, dev, kernels: dict) -> dict:
+    """Kernel 2's pq4 arm at the DEEP-10M pq4 rung's exact, default and
+    refined default searches (module docstring)."""
+    import statistics
+
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
+    from raft_tpu_torch.ops import ivf_scan
+
+    out = {"ptxas": _build_scan("pq4")}
+    x = cs.sift_like(10_000_000, 96, seed=3, device=dev)
+    q = cs.sift_like(10_000, 96, seed=4, device=dev)
+    _, truth = brute_force.knn(q[:1000], x, 10, device=dev)
+    index = ivf_pq.build(ivf_pq.IndexParams(
+        n_lists=1024, pq_dim=96, pq_bits=4, kmeans_trainset_fraction=0.1,
+        cache_dtype="pq4"), x, batch_size=2_000_000, device=dev)
+    if index.cache_kind != "pq4":
+        raise RuntimeError(f"pq4 rung: cache {index.cache_kind}")
+    for name, target, kc in (("exact", 1.0, 10), ("binned", 0.95, 10),
+                             ("binned_deep", 0.95, 30)):
+        sp = ivf_pq.SearchParams(n_probes=128, local_recall_target=target)
+        captured = {}
+        orig, _ = cs.record_scan(captured,
+                                 lambda a, kw: "scan" not in captured)
+        try:
+            ivf_pq.search(sp, index, q, kc)
+        finally:
+            ivf_scan.ivf_list_scan_topk = orig
+
+        def pipeline(sp=sp, kc=kc):
+            d, cand = ivf_pq.search(sp, index, q, kc)
+            if kc == 10:
+                return d, cand
+            return refine.refine(x, q, cand, 10, device=dev)
+
+        med = statistics.median(cs.timed_batches(pipeline))
+        _, ids = pipeline()
+        out[f"pq4_{name}"] = {"qps": q.shape[0] / med,
+                              "recall": cs.recall_of(ids[:1000, :10], truth),
+                              "refined": kc != 10}
+        a, kw = captured["scan"]
+        if kw.get("extract", "exact") != name:
+            raise RuntimeError(f"pq4 {name} search took "
+                               f"{kw.get('extract')}")
+        kernels[f"pq4:{name}"] = _scan_ab(cs, name, a, kw)
+        del captured, a, kw, ids
+    return out
 
 
 def _deep(cs, dev, kernels: dict) -> dict:
@@ -129,15 +214,9 @@ def _deep(cs, dev, kernels: dict) -> dict:
     import torch
 
     from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
-    from raft_tpu_torch.ops import _build, ivf_scan
+    from raft_tpu_torch.ops import ivf_scan
 
-    _build.build_all(names=("ivf_list_scan_topk",),
-                     stage_set=(_build.FULL, 1, 0))
-    # registers and spills of the Hopper body's kernels, where built here
-    log = _build.BUILD_LOG.get("ivf_list_scan_topk", "").splitlines()
-    out = {"ptxas": [" ".join(log[i:i + 4]) for i, ln in enumerate(log)
-                     if "Compiling entry function" in ln and
-                     "ivf_deep_scan_kernel" in ln]}
+    out = {"ptxas": _build_scan("ivf_deep_scan_kernel")}
     x = cs.sift_like(1_000_000, 128, seed=1, device=dev)
     q = cs.sift_like(10_000, 128, seed=2, device=dev)
     _, truth = brute_force.knn(q[:1000], x, 10, device=dev)
@@ -145,9 +224,10 @@ def _deep(cs, dev, kernels: dict) -> dict:
     out["cagra"] = {key: pres[key] for key in ("build_s", "recall", "qps",
                                                "graph_recall", "by_arm")}
     out["cagra"]["self_search_s"] = pres["secs"]["self_search"]
-    kernels["binned_deep:cagra_self_search"] = _deep_scan(
-        cs, "CAGRA self-search", *pres["captured"])
-    del x, q, truth, pres
+    a, kw = pres["captured"]
+    kernels["binned_deep:cagra_self_search"] = _scan_ab(
+        cs, "CAGRA self-search", a, dict(kw, extract="binned_deep"))
+    del x, q, truth, pres, a, kw
     torch.cuda.empty_cache()
 
     x = cs.sift_like(10_000_000, 96, seed=3, device=dev)
@@ -177,9 +257,10 @@ def _deep(cs, dev, kernels: dict) -> dict:
         _, rid = pipeline()
         out[name] = {"qps": q.shape[0] / med,
                      "refined_recall": cs.recall_of(rid[:1000], truth)}
-        kernels[f"binned_deep:{name}"] = _deep_scan(cs, name,
-                                                    *captured["scan"])
-        del captured, rid
+        a, kw = captured["scan"]
+        kernels[f"binned_deep:{name}"] = _scan_ab(
+            cs, name, a, dict(kw, extract="binned_deep"))
+        del captured, rid, a, kw
     return out
 
 
@@ -268,7 +349,8 @@ def main() -> int:
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(_child(args.roots[0], args.kernels)), flush=True)
+        print(json.dumps(_child(args.roots[0], args.kernels)),
+              flush=True)
         return 0
     runs = []
     for letter in args.order:
