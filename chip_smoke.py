@@ -45,8 +45,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              arms of both kernels, unmerged buffers bit for bit: kernel
              1's for every metric, f32 and bf16, R = 2, 3, 4
              and each tile of tuning.FUSED_TOPK_TILES with n off the tile,
-             kernel 2's on every storage kind and the pq4 kernel at R = 2
-             and 4), then at the paths' own shapes; then a small IVF-Flat,
+             kernel 1's Hopper fold body likewise (bf16 queries over bf16
+             and f32 rows, d 48 and 128, with and without keep) and on
+             random rows within fold_atol, kernel 2's on every storage
+             kind and the pq4 kernel at R = 2 and 4; kernel 2's f16 and
+             uint8 rows), then at the paths' own shapes; then a small
+             IVF-Flat (f32, float16 and uint8 rows),
              a small IVF-PQ (L2 and inner product, then one per cache
              rung: i4, pq4, RaBitQ, raw i4, raw i8), each with the exact
              and the binned arm, and a small CAGRA search on the card
@@ -60,7 +64,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              its default search (phase 8); then the fast brute force
              (brute_force.search(fast=True), k=10, k_cand=42) on the same
              rows and queries: its default on the card must take kernel
-             1's fold at fused_fold:2048 (from the launch record); the
+             1's fold at fused_fold:2048 on its Hopper body (from the
+             launch record); the
              same call at impl="fused_exact" beside it; recall@10 of both
              (the fold's no more than 0.01 under the exact arm's), QPS
              and a profile;
@@ -124,9 +129,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
              gathered, scores, merge; the packed and binned arms were timed on
              their paths); then the nvidia-smi line, one JSON line of
              per-kernel numbers (binned from the IVF-Flat default search,
-             binned_deep from the refined IVF-PQ one, kernel 1's fold from
-             the fast brute force, kernel 2's fold from IVF-Flat under the
-             fold table; a fold's bound counts its candidate write), and
+             binned_deep from the refined IVF-PQ one, kernel 1's fold (its
+             Hopper body, with its library yardstick) from the fast brute
+             force, kernel 2's fold from IVF-Flat under the fold table; a
+             fold's bound counts its candidate write), and
              last the result line.
 
 Tolerances: the brute-force, list-scan and join kernels and their plain
@@ -150,6 +156,10 @@ body (int8, i4 and sign-bit rows under bf16 operands), whose dots run on
 the tensor cores and sum the exact products in another order: it is held
 bit for bit on small-integer cases, where every dot is exact in any
 order, and elsewhere to the tolerance with equal ids on tie-free keys.
+Kernel 1's Hopper fold body likewise: bit for bit on small integers,
+else within ``fold_atol`` (1.25 d 2^-24 of ||q|| times the largest row
+norm, twice that for L2) on sorted or merged rows, a lane's near-tied
+rival hidden.
 The CAGRA self-search, the refined IVF-PQ first stage and RaBitQ's first
 stage must take that body, and every launch of the pq4 rung's exact,
 default and refined default searches the pq4 Hopper body (launches by
@@ -354,18 +364,55 @@ def pq4_atol(args, kw) -> torch.Tensor:
     return _pq4_bound(kw["pq_centers"], rn).reshape(-1)
 
 
+def fold_atol(args, kw) -> torch.Tensor:
+    """Per-row absolute tolerance of kernel 1's Hopper fold body against
+    its plain version, one value a query, at ``fused_knn_fold``'s ``args``
+    (queries, dataset, k) and ``kw``. Each dot's products are exact (bf16
+    times bf16 in f32); the tensor cores add them 16 a k-step and may
+    truncate where the plain version rounds to nearest: 2 ulps of the
+    running sum a step, so d / 16 steps of 2^-22 M, M = sum |q_c x_c| <=
+    ||q|| ||x||. The plain version's own sum in its order may round each
+    of its d additions, d 2^-24 M. A dot thus differs by at most 1.25 d
+    2^-24 ||q|| X, X the dataset's largest row norm (of the bf16 rows the
+    body multiplies): twice that for an L2 distance, that for inner
+    product, and 1.25 d 2^-24 for cosine (the dot over ||q|| ||x||); plus
+    ATOL."""
+    from raft_tpu_torch.ops import fused_topk
+
+    queries, dataset = args[:2]
+    d = queries.shape[1]
+    bound = 1.25 * d * 2.0 ** -24
+    mk = kw.get("metric_kind")
+    if mk == fused_topk.COSINE:
+        return torch.full((queries.shape[0],), bound + ATOL,
+                          device=queries.device)
+    q = queries.float()
+    qn = (q * q).sum(1).sqrt()
+    xmax = 0.0
+    for r0 in range(0, dataset.shape[0], 1 << 20):
+        xb = dataset[r0:r0 + (1 << 20)].to(torch.bfloat16).float()
+        xmax = max(xmax, float((xb * xb).sum(1).max()))
+    scale = 2.0 if mk == fused_topk.L2 else 1.0       # L2: 2 q.x
+    return scale * bound * qn * xmax ** 0.5 + ATOL
+
+
 def scan_tolerance(body: str, args, kw) -> dict:
-    """``compare``'s keywords for kernel 2's launch on ``body`` (a key of
-    ``ivf_list_scan_topk.by_body``) at ``args``, ``kw``: the core at
-    ATOL; the binned_deep Hopper body at ``deep_atol`` and the pq4 Hopper
-    body at ``pq4_atol``, both under the join rule, the pq4 body's binned
-    arms also hiding a bin's near-tied rival (``hidden``)."""
+    """``compare``'s keywords for a launch on ``body`` at ``args``,
+    ``kw``: kernel 2's (a key of ``ivf_list_scan_topk.by_body``) or kernel
+    1's fold (``fused_knn_topk.by_body``, "fold_hopper", at
+    ``fused_knn_fold``'s arguments). The core at ATOL; the binned_deep
+    Hopper body at ``deep_atol``, the pq4 Hopper body at ``pq4_atol`` and
+    the fold's Hopper body at ``fold_atol``, all under the join rule; the
+    pq4 body's binned arms and the fold body (a lane's stack lists R of
+    its candidates) also hiding a near-tied rival (``hidden``)."""
     if body == "core":
         return {"atol": ATOL}
-    atol = {"hopper": deep_atol, "pq4_hopper": pq4_atol}[body](args, kw)
+    atol = {"hopper": deep_atol, "pq4_hopper": pq4_atol,
+            "fold_hopper": fold_atol}[body](args, kw)
     return {"atol": atol, "join": True,
-            "hidden": body == "pq4_hopper" and kw.get(
-                "extract", "exact") in ("binned", "binned_deep")}
+            "hidden": body == "fold_hopper" or (
+                body == "pq4_hopper" and kw.get("extract", "exact") in (
+                    "binned", "binned_deep"))}
 
 
 def _pq4_bound(pq_centers, rn) -> torch.Tensor:
@@ -506,6 +553,24 @@ def phase_small_parity(dev) -> None:
                                                    k=k, metric_kind=mk)
         compare(f"ivf_list_scan_topk k={k} metric={mk} {str(qt)[6:]} x "
                 f"{str(dt)[6:]} keep={kp is not None}", kd, ki, pd, pi)
+    # IVF-Flat's float16 and uint8 rows, scanned as stored
+    for dt in (torch.float16, torch.uint8):
+        st = (storage.to(dt) if dt == torch.float16 else
+              (storage * 30 + 128).clamp(0, 255).to(dt))
+        xn = (st.float() ** 2).sum(2)
+        for mk, qa, xnorm, kp, k, qt in [
+                (ivf_scan.L2, qn, xn, keep, 10, F32),
+                (ivf_scan.IP, None, None, None, 64, F32),
+                (ivf_scan.L2, qn, xn, None, 10, BF16),
+                (ivf_scan.COSINE, qn.sqrt(), xn, keep, 100, BF16)]:
+            kd, ki = ivf_scan.ivf_list_scan_topk(st, ids, sizes, bl, bq,
+                                                 q.to(qt), qa, xnorm, kp,
+                                                 k=k, metric_kind=mk)
+            pd, pi = ivf_scan.ivf_list_scan_topk_plain(
+                st, ids, sizes, bl, bq, q.to(qt), qa, xnorm, kp, k=k,
+                metric_kind=mk)
+            compare(f"ivf_list_scan_topk k={k} metric={mk} {str(qt)[6:]} x "
+                    f"{str(dt)[6:]} keep={kp is not None}", kd, ki, pd, pi)
     phase_small_parity_int8(dev, g)
 
 
@@ -1067,8 +1132,10 @@ def phase_small_parity_fold(dev) -> None:
     for mk, qt, k, tile in ((fused_topk.L2, F32, 10, 512),
                             (fused_topk.COSINE, BF16, 130, 1024),
                             (fused_topk.IP, F32, 200, 2048)):
-        q = torch.randn(100, 64, generator=g, device=dev).to(qt)
-        x = torch.randn(5000, 64, generator=g, device=dev).to(qt)
+        # d = 40: bf16 queries stay on the core's fold here (the Hopper
+        # body takes d a multiple of 16; hopper_fold_cases holds it)
+        q = torch.randn(100, 40, generator=g, device=dev).to(qt)
+        x = torch.randn(5000, 40, generator=g, device=dev).to(qt)
         kd, ki = fused_topk.fused_knn_fold(q, x, k, metric_kind=mk,
                                            tile_n=tile)
         pd, pi = fused_topk.fused_knn_fold_plain(q, x, k, metric_kind=mk,
@@ -1086,6 +1153,7 @@ def phase_small_parity_fold(dev) -> None:
         n_equal += same
     log(f"  kernel 1: {n_equal} of {3 * 2 * 3 * 2 + 3} fold buffers equal "
         "bit for bit (every integer case)")
+    hopper_fold_cases(dev, g)
 
     C, nb, G, m = 12, 30, 256, 400
     L2, IP = ivf_scan.L2, ivf_scan.IP
@@ -1129,6 +1197,81 @@ def phase_small_parity_fold(dev) -> None:
     log("  kernel 2, bit for bit per storage kind (fold vs plain version): "
         + ", ".join(f"{arm} {sum(v)}/{len(v)}" for arm, v in
                     bit_exact.items()))
+
+
+def fold_launch(*args, **kw):
+    """``fused_knn_fold(*args, **kw)`` and the body its launch took (a
+    key of ``fused_knn_topk.by_body``)."""
+    from raft_tpu_torch.ops import fused_topk
+
+    counts = fused_topk.fused_knn_topk.by_body
+    before = dict(counts)
+    out = fused_topk.fused_knn_fold(*args, **kw)
+    body = next((b for b, c in counts.items() if c > before.get(b, 0)),
+                "core")
+    return out, body
+
+
+def hopper_fold_cases(dev, g) -> None:
+    """Kernel 1's fold through the Hopper body against the plain version:
+    every metric, bf16 and f32 rows under bf16 queries, R = 2, 3 and 4
+    (k = 10, 130, 200), each tile of ``FUSED_TOPK_TILES``, n off a
+    multiple of the tile, d = 48 and 128, with and without a keep filter,
+    on small-integer rows and queries: buffers bit for bit (their dots are
+    exact in f32 in any order). Then random rows at the tolerance of
+    ``scan_tolerance("fold_hopper")`` on the buffers' sorted rows, a
+    lane's near-tied rival hidden. Every launch must take the body."""
+    from raft_tpu_torch import tuning
+    from raft_tpu_torch.ops import fused_topk
+
+    n_cases = 0
+    for mk in (fused_topk.L2, fused_topk.IP, fused_topk.COSINE):
+        for xt in (BF16, F32):
+            for k, tile in zip((10, 130, 200), tuning.FUSED_TOPK_TILES):
+                for d in (48, 128):
+                    m, n = 70, 3 * tile + 37
+                    q = torch.randint(-4, 5, (m, d), generator=g,
+                                      device=dev).float().to(BF16)
+                    x = torch.randint(-4, 5, (n, d), generator=g,
+                                      device=dev).float().to(xt)
+                    keep = (torch.rand(n, generator=g, device=dev)
+                            < 0.7).int()
+                    for kp in (None, keep):
+                        kw = dict(metric_kind=mk, keep=kp, tile_n=tile)
+                        (kd, ki), body = fold_launch(q, x, k, **kw)
+                        pd, pi = fused_topk.fused_knn_fold_plain(q, x, k,
+                                                                 **kw)
+                        name = (f"fused_knn_fold_hopper m={m} n={n} d={d} "
+                                f"k={k} tile={tile} metric={mk} rows "
+                                f"{str(xt)[6:]} keep={kp is not None}")
+                        if body != "fold_hopper":
+                            raise SmokeFailure(f"{name}: took the {body} "
+                                               "body")
+                        if kd.shape != pd.shape or not (
+                                torch.equal(kd, pd) and torch.equal(ki, pi)):
+                            raise SmokeFailure(f"{name}: the fold buffer is "
+                                               "not bit for bit its plain "
+                                               "version's")
+                        n_cases += 1
+    log(f"  kernel 1, Hopper fold body: {n_cases} integer buffers equal bit "
+        "for bit")
+    for mk, xt, k, tile, d in ((fused_topk.L2, BF16, 10, 2048, 128),
+                               (fused_topk.COSINE, BF16, 130, 1024, 64),
+                               (fused_topk.IP, F32, 200, 512, 96),
+                               (fused_topk.L2, F32, 42, 2048, 128)):
+        q = (torch.rand(100, d, generator=g, device=dev) * 255).to(BF16)
+        x = (torch.rand(5000, d, generator=g, device=dev) * 255).to(xt)
+        if mk != fused_topk.L2:
+            q, x = (q.float() - 127.5).to(BF16), (x.float() - 127.5).to(xt)
+        kw = dict(metric_kind=mk, tile_n=tile)
+        (kd, ki), body = fold_launch(q, x, k, **kw)
+        pd, pi = fused_topk.fused_knn_fold_plain(q, x, k, **kw)
+        name = (f"fused_knn_fold_hopper random rows d={d} k={k} tile={tile} "
+                f"metric={mk} rows {str(xt)[6:]}")
+        if body != "fold_hopper":
+            raise SmokeFailure(f"{name}: took the {body} body")
+        compare(name, *sorted_rows(kd, ki), *sorted_rows(pd, pi),
+                **scan_tolerance(body, (q, x, k), kw))
 
 
 def compare_exact(name, outs_k, outs_p) -> None:
@@ -1339,26 +1482,35 @@ def phase_small_search(dev) -> None:
     """The whole search on a small index: the card's kernel path against
     the same index searched on the CPU (plain versions), with the exact
     arm (``local_recall_target=1.0``) and with the binned arm that
-    "pallas" takes at the default target on both sides."""
+    "pallas" takes at the default target on both sides; over f32 rows,
+    then over float16 and uint8 datasets, whose rows the index keeps as
+    stored (kernel 2's f16 and uint8 storage kinds)."""
     from raft_tpu_torch.neighbors import ivf_flat
 
     x = sift_like(20_000, 128, seed=3, device=dev)
     q = sift_like(300, 128, seed=4, device=dev)
-    ix = ivf_flat.build(ivf_flat.IndexParams(n_lists=64, kmeans_n_iters=10),
-                        x, device=dev)
-    cpu_ix = dataclasses.replace(
-        ix, **{f: getattr(ix, f).cpu() for f in
-               ("centers", "storage", "indices", "list_sizes",
-                "data_norms")})
     log("parity (small IVF-Flat search, card vs CPU):")
-    for what, sp in (("exact", ivf_flat.SearchParams(
-            n_probes=8, local_recall_target=1.0)),
-                     ("binned", ivf_flat.SearchParams(
-                         n_probes=8, scan_impl="pallas"))):
-        kd, ki = ivf_flat.search(sp, ix, q, 10)
-        pd, pi = ivf_flat.search(sp, cpu_ix, q.cpu(), 10)
-        compare(f"ivf_flat.search 20k x 128, 64 lists, {what} arm",
-                kd.cpu(), ki.cpu(), pd, pi)
+    for rows in (torch.float32, torch.float16, torch.uint8):
+        data = x.round().to(rows) if rows == torch.uint8 else x.to(rows)
+        qr = q.round() if rows == torch.uint8 else q
+        ix = ivf_flat.build(ivf_flat.IndexParams(n_lists=64,
+                                                 kmeans_n_iters=10),
+                            data, device=dev)
+        if ix.storage.dtype != rows:
+            raise SmokeFailure(f"ivf_flat over {rows} rows stored them as "
+                               f"{ix.storage.dtype}")
+        cpu_ix = dataclasses.replace(
+            ix, **{f: getattr(ix, f).cpu() for f in
+                   ("centers", "storage", "indices", "list_sizes",
+                    "data_norms")})
+        for what, sp in (("exact", ivf_flat.SearchParams(
+                n_probes=8, local_recall_target=1.0)),
+                         ("binned", ivf_flat.SearchParams(
+                             n_probes=8, scan_impl="pallas"))):
+            kd, ki = ivf_flat.search(sp, ix, qr, 10)
+            pd, pi = ivf_flat.search(sp, cpu_ix, qr.cpu(), 10)
+            compare(f"ivf_flat.search 20k x 128 {str(rows)[6:]} rows, 64 "
+                    f"lists, {what} arm", kd.cpu(), ki.cpu(), pd, pi)
 
 
 def phase_small_cagra(dev) -> None:
@@ -1583,7 +1735,7 @@ def scan_work(args, kw):
     probed[bucket_list.long()[valid_q > 0]] = True
     probed_rows = int(sizes[probed].sum())
     nb, G = bucket_q.shape
-    row_bytes = (d * storage.element_size() if kind < ivf_scan.I4
+    row_bytes = (d * storage.element_size() if kind in ivf_scan._DENSE
                  else storage.shape[1] * 4)
     row_bytes += 4 + (4 if norms is not None else 0) + (
         4 if kw.get("row_scale") is not None else 0)
@@ -1829,8 +1981,9 @@ def fast_bf_path(dev, x, q, truth, k=10) -> dict:
     """The fast brute force (``brute_force.search(fast=True)``) on the main
     path's rows and queries: bf16 candidates at k_cand = max(4k, k + 32)
     = 42, refined exactly to k. Its default on the card is kernel 1's fold
-    at the analytic tile (``fused_fold:2048``, asserted from the launch
-    record, counts set to 0 just before the search and read just after);
+    at the analytic tile (``fused_fold:2048``) on the Hopper body
+    (``fold_hopper``), both asserted from the launch record, counts set to
+    0 just before the search and read just after;
     the same call with ``impl="fused_exact"`` runs beside it. Recall@k of
     both on the truth's queries, QPS (median of 5 batches), a profile of
     one fold batch. Gate: the fold's recall no more than 0.01 under the
@@ -1853,11 +2006,13 @@ def fast_bf_path(dev, x, q, truth, k=10) -> dict:
 
     rec.launches = 0
     rec.by_impl = {}
+    rec.by_body = {}
     fused_topk.fused_knn_topk = rec
     try:
         _, ids = brute_force.search(index, q, k, fast=True)
         torch.cuda.synchronize()
         launches = dict(rec.by_impl)
+        bodies = dict(rec.by_body)
         rec.by_impl.clear()
         _, eids = brute_force.search(index, q, k, fast=True,
                                      impl="fused_exact")
@@ -1866,11 +2021,15 @@ def fast_bf_path(dev, x, q, truth, k=10) -> dict:
     finally:
         fused_topk.fused_knn_topk = orig
     log(f"fast brute force (SIFT-1M rows, {q.shape[0]} queries, k={k}): "
-        f"default launches {launches}, impl='fused_exact' launches "
-        f"{exact_launches}")
+        f"default launches {launches} by body {bodies}, impl='fused_exact' "
+        f"launches {exact_launches}")
     if launches != {"fused_fold:2048": 1}:
         raise SmokeFailure(f"the default fast brute force took {launches}, "
                            "not one launch of fused_fold:2048")
+    if bodies != {"fold_hopper": 1}:
+        raise SmokeFailure(f"the default fast brute force's fold took "
+                           f"{bodies}, not the Hopper body "
+                           "(ops/fused_topk.fold_body)")
     if exact_launches != {"fused_exact": 1}:
         raise SmokeFailure(f"impl='fused_exact' took {exact_launches}")
     n = truth.shape[0]
@@ -1903,14 +2062,51 @@ def fast_bf_path(dev, x, q, truth, k=10) -> dict:
             "exact_qps": runs["exact"], "failed": failed}
 
 
+def fold_library(queries, dataset, k, kw, block: int = 1024):
+    """The fold's yardstick of PyTorch calls, never used by the port: in
+    blocks of ``block`` queries, the bf16 distance block (``torch.matmul``
+    of the bf16 operands, the epilogue in f32), padded to whole tiles with
+    +inf, and ``torch.topk`` of R over each lane's chunks: the lane
+    stacks' distances, but from dots that the bf16 product's output rounds
+    to bf16 (a yardstick of time, not of the values)."""
+    from raft_tpu_torch.ops import fused_topk
+
+    mk, tile = kw["metric_kind"], kw["tile_n"]
+    R = fused_topk.fold_depth(k)
+    x = dataset.to(torch.bfloat16)
+    n = x.shape[0]
+    pad = -n % tile
+    xn = kw.get("norms")
+    if mk != fused_topk.IP and xn is None:
+        xn = (x.float() ** 2).sum(1)
+    out = []
+    for q0 in range(0, queries.shape[0], block):
+        qb = queries[q0:q0 + block].to(torch.bfloat16)
+        qa = None
+        if mk != fused_topk.IP:
+            qa = (qb.float() ** 2).sum(1)
+            qa = qa if mk == fused_topk.L2 else qa.sqrt()
+            qa = qa[:, None]
+        dist = fused_topk._epilogue(
+            torch.matmul(qb, x.T).float(), mk, qa,
+            None if xn is None else xn[None, :])
+        dist = torch.nn.functional.pad(dist, (0, pad), value=float("inf"))
+        dist = dist.reshape(qb.shape[0], -1, tile // 128, 128)
+        out.append(torch.topk(dist, R, dim=2, largest=False).values)
+        del dist
+    return out
+
+
 def measure_knn_fold(args, kw, launches) -> dict:
     """Kernel 1's fold at the fast path's captured inputs: its unmerged
-    buffer against the plain version's (bit for bit, else -- where the
-    exact arm is not bit for bit either -- the merged top-k within
-    tolerance), time, stage split, plain time and bound. The bound's
-    bytes are the inputs read once plus the candidate buffer written
-    once; its operations 2 d a (query, row) pair at the operands' rate.
-    No single PyTorch call computes a fold (no library time)."""
+    buffer against the plain version's, held at the tolerance of the body
+    its launch took (``scan_tolerance``): bit for bit, else -- where the
+    core's fold is not bit for bit and its exact arm is not either, or on
+    the Hopper body, whose sums take another order -- the merged top-k
+    within tolerance. Time, stage split, plain time, bound and the
+    library yardstick (``fold_library``). The bound's bytes are the
+    inputs read once plus the candidate buffer written once; its
+    operations 2 d a (query, row) pair at the operands' rate."""
     from raft_tpu_torch.neighbors.common import merge_topk
     from raft_tpu_torch.ops import fused_topk
 
@@ -1928,24 +2124,29 @@ def measure_knn_fold(args, kw, launches) -> dict:
     def plain():
         return fused_topk.fused_knn_fold_plain(*args, **fkw)
 
-    kd, ki = kern()
+    (kd, ki), body = fold_launch(*args, **fkw)
     pd, pi = plain()
     exact = kd.shape == pd.shape and torch.equal(kd, pd) and \
         torch.equal(ki, pi)
     width = kd.shape[1]
     if exact:
         err = {"max_abs_err": 0.0}
-        log(f"  fused_knn_topk:fold: [{queries.shape[0]}, {width}] buffer "
-            "equal bit for bit to the plain version's")
+        log(f"  fused_knn_topk:fold ({body}): [{queries.shape[0]}, {width}] "
+            "buffer equal bit for bit to the plain version's")
     else:
-        ed, ei = fused_topk.fused_knn_topk(*args, **dict(fkw, tile_n=None))
-        epd, epi = fused_topk.fused_knn_topk_plain(*args, **dict(
-            fkw, tile_n=None))
-        if torch.equal(ed, epd) and torch.equal(ei, epi):
-            raise SmokeFailure("fused_knn_topk:fold: the exact arm is bit for"
-                               " bit its plain version's, the fold is not")
-        err = compare("fused_knn_topk:fold (path shapes, merged)",
-                      *merge_topk(kd, ki, k), *merge_topk(pd, pi, k))
+        if body == "core":
+            ed, ei = fused_topk.fused_knn_topk(*args, **dict(fkw,
+                                                             tile_n=None))
+            epd, epi = fused_topk.fused_knn_topk_plain(*args, **dict(
+                fkw, tile_n=None))
+            if torch.equal(ed, epd) and torch.equal(ei, epi):
+                raise SmokeFailure("fused_knn_topk:fold: the exact arm is "
+                                   "bit for bit its plain version's, the "
+                                   "fold is not")
+            del ed, ei, epd, epi
+        err = compare(f"fused_knn_topk:fold ({body}, path shapes, merged)",
+                      *merge_topk(kd, ki, k), *merge_topk(pd, pi, k),
+                      **scan_tolerance(body, args, fkw))
     del kd, ki, pd, pi
     torch.cuda.empty_cache()
     ms = cuda_ms(kern, reps=5)
@@ -1953,29 +2154,37 @@ def measure_knn_fold(args, kw, launches) -> dict:
     plain_ms = cuda_ms(plain, reps=1)
     fused_topk.fused_knn_topk.launches = before     # measurement launches
     torch.cuda.empty_cache()
+    lib_ms = cuda_ms(lambda: fold_library(queries, dataset, k, fkw), reps=1)
+    torch.cuda.empty_cache()
 
     m, d = queries.shape
     n = dataset.shape[0]
-    bytes_ = (m * d * 4 + n * d * dataset.element_size() + n * 4 + m * 4
-              + m * width * 8)
+    bytes_ = (m * d * queries.element_size() + n * d * dataset.element_size()
+              + n * 4 + m * 4 + m * width * 8
+              + (n * 4 if fkw.get("keep") is not None else 0))
     flops = 2.0 * m * n * d
     bf16 = torch.bfloat16 in (queries.dtype, dataset.dtype)
     peak = H100_BF16_FLOPS if bf16 else H100_F32_FLOPS
     t_bytes = bytes_ / H100_HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
-    log(f"  fused_knn_topk:fold: {ms:.3f} ms kernel, {plain_ms:.3f} ms "
-        f"plain; {flops / 1e9:.1f} GFLOP ({'bf16' if bf16 else 'f32'}), "
-        f"{bytes_ / 1e9:.3f} GB ({m * width * 8 / 1e9:.3f} GB of "
-        f"candidates) -> bound {max(t_bytes, t_ops):.3f} ms "
+    log(f"  fused_knn_topk:fold ({body}): {ms:.3f} ms kernel, {plain_ms:.3f}"
+        f" ms plain, {lib_ms:.3f} ms torch.matmul+topk(R); "
+        f"{flops / 1e9:.1f} GFLOP ({'bf16' if bf16 else 'f32'}) -> "
+        f"{t_ops:.3f} ms, {bytes_ / 1e9:.3f} GB ({m * width * 8 / 1e9:.3f} GB"
+        f" of candidates) -> {t_bytes:.3f} ms; bound "
+        f"{max(t_bytes, t_ops):.3f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
-    return {"name": "fused_knn_topk:fold", "route": "cuda",
-            "source": "raft_tpu_torch/ops/csrc/fused_knn_topk.cu",
+    hopper = body == "fold_hopper"
+    return {"name": "fused_knn_topk:fold" + ("_hopper" if hopper else ""),
+            "route": "cuda",
+            "source": "raft_tpu_torch/ops/csrc/" + (
+                "fused_fold_hopper.cuh" if hopper else "fused_knn_topk.cu"),
             "replaces": "raft_tpu/ops/fused_topk.py:102",
             "launches": launches, "max_abs_err": err["max_abs_err"],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": lib_ms, "body": body}
 
 
 def fold_table_searches(runs) -> list:

@@ -20,7 +20,7 @@ import torch
 
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.distance.types import DistanceType, is_min_close
-from raft_tpu_torch.matrix.select_k import select_k
+from raft_tpu_torch.matrix.select_k import dispatch_select_impl, select_k
 
 #: valid ``out_of_range`` modes for bitset filters: ``"drop"`` rejects a
 #: sample id beyond the filter's n_bits (allow-list semantics); ``"keep"``
@@ -173,12 +173,17 @@ def sentinel_for(metric: DistanceType) -> float:
 def merge_topk(dists: torch.Tensor, idxs: torch.Tensor, k: int,
                select_min: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge candidate lists along the last axis into a top-k, best-first
-    (ties to the earlier candidate)."""
+    (ties to the earlier candidate). The selection's arm is the
+    reference's (``common.py:202-219``): the ``merge_topk`` table section,
+    else select_k's own dispatch ("auto")."""
     shape = dists.shape
     d2 = dists.reshape(-1, shape[-1])
     i2 = idxs.reshape(-1, shape[-1])
+    impl = dispatch_select_impl(d2.shape[0], d2.shape[1], int(k), d2.dtype,
+                                op="merge_topk", fallback="auto",
+                                device=d2.device)
     vals, out_i = select_k(d2, k, in_idx=i2, select_min=select_min,
-                           device=d2.device)
+                           impl=impl, device=d2.device)
     return (vals.reshape(*shape[:-1], k), out_i.reshape(*shape[:-1], k))
 
 

@@ -862,7 +862,7 @@ def _cache_kind_for(cache_decoded: bool, cache_dtype: str, C: int, cap: int,
     budget; below it, the rung that fits among i4, pq4 and RaBitQ, which
     the reference picks through its tuning table (``tuning.choose``) with
     "i4" as the analytic fallback (else no cache). The table waits for
-    the port of ``tuning/`` (ROADMAP.md, Queue A item 3), so "auto" gives
+    the port of ``tuning/`` (ROADMAP.md, Queue A item 1), so "auto" gives
     what the reference gives on a table miss or with tuning off. An
     explicit kind that does not fit gives no cache, as in the
     reference."""

@@ -143,6 +143,12 @@ def only_stages(n: int):
         _stages = prev
 
 
+def aligned(t):
+    """``t``, or a copy where its address is not 16-byte aligned (the
+    Hopper bodies' cp.async loads); None passes through."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ptr(t):
     """A tensor's device address for a ``ctypes.c_void_p`` argument (None
     passes a null pointer)."""

@@ -33,7 +33,16 @@
 // Its bins take 96 KB (R = 2) to 192 KB (R = 4) of shared memory beside
 // the 35.3 KB of tiles, so one block runs on an SM; the exact arm's
 // instantiations compile as they did before the fold.
+//
+// The fold arm has a second body, designed for Hopper
+// (fused_fold_hopper.cuh, entry fused_knn_fold_hopper below): wgmma
+// distance tiles of 128 queries (64 at R = 3, 4) x 128 rows from shared
+// memory, the lane stacks in registers. bf16 queries with d a multiple
+// of 16 and tiles of at most 2048 rows take it where the caller routes
+// them (ops/fused_topk.py:fold_body); the rest keep this file's
+// kFold2..4.
 #include "scan_topk.cuh"
+#include "fused_fold_hopper.cuh"
 
 using namespace rtt;
 
@@ -171,4 +180,37 @@ extern "C" int fused_knn_topk(const void* queries, const void* qaux,
                   oi, s);
   return launch(q, qa, static_cast<const float*>(x), xn, kp, m, n, d, k,
                 chunk_rows, n_chunks, metric, round_ops, fold_r, od, oi, s);
+}
+
+// The fold through the Hopper body (fused_fold_hopper.cuh): queries [m, d]
+// bf16 (16-byte aligned); qaux [m] f32 (null for IP); x [n, d] bf16
+// (x_bf16, 16-byte aligned) or f32 (rounded to bf16); norms [n] f32 (null
+// for IP); keep [n] int32 or null; d a multiple of 16 within a block's
+// shared memory; tile_n a multiple of 128 up to 2048; fold_r 2-4; out_d /
+// out_i [m, n_tiles * 128 R]. Returns a cudaError_t code.
+extern "C" int fused_knn_fold_hopper(const void* queries, const void* qaux,
+                                     const void* x, int x_bf16,
+                                     const void* norms, const void* keep,
+                                     int m, int n, int d, int tile_n,
+                                     int n_tiles, int metric, int fold_r,
+                                     void* out_d, void* out_i,
+                                     void* stream) {
+  if (m < 1 || n < 1 || d < 16 || d % 16 != 0 || tile_n < NBINS ||
+      tile_n % NBINS != 0 || tile_n / NBINS > foldh::MAX_CHUNKS ||
+      n_tiles != (n + tile_n - 1) / tile_n || fold_r < 2 || fold_r > 4 ||
+      foldh::smem_bytes(fold_r, d) > 232448)
+    return (int)cudaErrorInvalidValue;
+  const auto* q = static_cast<const __nv_bfloat16*>(queries);
+  const auto* qa = static_cast<const float*>(qaux);
+  const auto* xn = static_cast<const float*>(norms);
+  const auto* kp = static_cast<const int*>(keep);
+  auto* od = static_cast<float*>(out_d);
+  auto* oi = static_cast<int*>(out_i);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return foldh::launch_r(fold_r, q, qa,
+                           static_cast<const __nv_bfloat16*>(x), xn, kp, m,
+                           n, d, tile_n, n_tiles, metric, od, oi, s);
+  return foldh::launch_r(fold_r, q, qa, static_cast<const float*>(x), xn,
+                         kp, m, n, d, tile_n, n_tiles, metric, od, oi, s);
 }

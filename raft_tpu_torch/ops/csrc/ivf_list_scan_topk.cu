@@ -451,6 +451,36 @@ static int launch(const T* storage, const int* indices,
 #undef RTT_ARM
 }
 
+// f16 and uint8 rows (IVF-Flat over float16 and uint8 datasets, stored as
+// the dataset's type): plain queries only, the one mode IVF-Flat scans
+// them in, at every extraction arm; the rows widen exactly as they are
+// staged (f16 then rounded to bf16 with round_ops).
+template <typename T>
+static int launch_plain_rows(const T* storage, const int* indices,
+                             const int* list_sizes, const int* bucket_list,
+                             const int* bucket_q, const float* queries,
+                             const float* qaux, const float* norms,
+                             const int* keep, const float* centers,
+                             float scale, const float* scale_vec, int cap,
+                             int d, int nb, int G, int k, int metric,
+                             int round_ops, int extract, float* out_d,
+                             int* out_i, cudaStream_t stream) {
+  if (centers != nullptr || scale_vec != nullptr || scale != 1.f)
+    return (int)cudaErrorInvalidValue;
+#define RTT_ARM(EXTRACT)                                                      \
+  launch_as<T, false, kRowsDense, false, EXTRACT>(                            \
+      storage, indices, list_sizes, bucket_list, bucket_q, queries, qaux,     \
+      norms, keep, nullptr, 1.f, nullptr, nullptr, cap, d, 0, nb, G, k,       \
+      metric, round_ops, out_d, out_i, stream)
+  if (extract == kBinned) return RTT_ARM(kBinned);
+  if (extract == kBinnedDeep) return RTT_ARM(kBinnedDeep);
+  if (extract == kFold2) return RTT_ARM(kFold2);
+  if (extract == kFold3) return RTT_ARM(kFold3);
+  if (extract == kFold4) return RTT_ARM(kFold4);
+  return RTT_ARM(kExact);
+#undef RTT_ARM
+}
+
 template <int EXTRACT>
 static int launch_pq4_arm(const uint32_t* storage, const int* indices,
                           const int* list_sizes, const int* bucket_list,
@@ -501,8 +531,8 @@ static int launch_pq4(const uint32_t* storage, const int* indices,
 #undef RTT_ARM
 }
 
-// storage of kind storage_kind: 0 f32, 1 bf16, 2 int8 rows [C, cap, d];
-// 3 packed int4 (d = 8 nw), 4 packed sign bits (d = 32 nw), 5 packed
+// storage of kind storage_kind: 0 f32, 1 bf16, 2 int8, 6 f16, 7 uint8 rows
+// [C, cap, d] (6 and 7 with plain queries only); 3 packed int4 (d = 8 nw), 4 packed sign bits (d = 32 nw), 5 packed
 // 4-bit PQ codes (d = p * pl), each [C, nw, cap] uint32 words. indices
 // [C, cap] int32; list_sizes [C]; bucket_list [nb]; bucket_q [nb, G] (-1 =
 // empty slot); queries [m, d] f32; qaux [m] f32 (null for IP, and unread
@@ -530,7 +560,7 @@ extern "C" int ivf_list_scan_topk(
     int cap, int d, int nw, int p, int pl, int nb, int G, int k, int metric,
     int round_ops, int extract, void* out_d, void* out_i, void* stream) {
   if (k < 1 || k > KMAX || cap < 1 || d < 1 || nb < 1 || G < 1 ||
-      storage_kind < 0 || storage_kind > 5 || extract < kExact ||
+      storage_kind < 0 || storage_kind > 7 || extract < kExact ||
       (extract > kFold4 && extract != deep::kBinnedDeepHopper &&
        !pq4h::is_code(extract)))
     return (int)cudaErrorInvalidValue;
@@ -570,8 +600,9 @@ extern "C" int ivf_list_scan_topk(
        k > (extract == kBinned ? 64 : KMAX) ||
        (is_fold(extract) && k > 64 * bin_depth(extract))))
     return (int)cudaErrorInvalidValue;
-  if (storage_kind >= 3 && (nw < 1 || (storage_kind == 3 && d != 8 * nw) ||
-                            (storage_kind == 4 && d != 32 * nw)))
+  if (storage_kind >= 3 && storage_kind <= 5 &&
+      (nw < 1 || (storage_kind == 3 && d != 8 * nw) ||
+       (storage_kind == 4 && d != 32 * nw)))
     return (int)cudaErrorInvalidValue;
   if (storage_kind == 5 &&
       (pq_centers == nullptr || p < 1 || pl < 1 || p > 8 * nw ||
@@ -613,6 +644,16 @@ extern "C" int ivf_list_scan_topk(
                                          kp, ct, scale, sv, rs, cap, d, nw,
                                          nb, G, k, metric, round_ops,
                                          extract, od, oi, s);
+    case 6:
+      return launch_plain_rows<__half>(
+          static_cast<const __half*>(storage), ix, ls, bl, bq, q, qa, xn, kp,
+          ct, scale, sv, cap, d, nb, G, k, metric, round_ops, extract, od,
+          oi, s);
+    case 7:
+      return launch_plain_rows<uint8_t>(
+          static_cast<const uint8_t*>(storage), ix, ls, bl, bq, q, qa, xn, kp,
+          ct, scale, sv, cap, d, nb, G, k, metric, round_ops, extract, od,
+          oi, s);
     case 5:
       return launch_pq4(words, ix, ls, bl, bq, q, xn, kp, ct,
                         static_cast<const float*>(pq_centers), cap, nw, p, pl,

@@ -5,9 +5,10 @@
 // into each query's running top-k of (distance, position) — ties go to the
 // lower position, as in the TPU kernels' k-pass extraction.
 //
-// Operands: rows are f32, bf16 or int8 and are widened to f32 exactly as
-// they are staged; with `round_ops` f32 rows are then rounded to bf16 (the
-// reference's bf16 compute; bf16 and int8 rows are bf16 values already),
+// Operands: rows are f32, bf16, f16, int8 or uint8 and are widened to f32
+// exactly as they are staged; with `round_ops` f32 and f16 rows are then
+// rounded to bf16 (the reference's bf16 compute casts its rows to bf16;
+// bf16, int8 and uint8 rows are bf16 values already),
 // without it f32 queries meet the widened rows unrounded (f32 x bf16 rows
 // stays exact). Queries come in two modes, fixed at compile time: as the
 // caller gives them (already rounded to bf16 with `round_ops`), a plain
@@ -64,6 +65,7 @@
 #endif
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -119,6 +121,14 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 __device__ __forceinline__ float to_f32(int8_t v) {
   return static_cast<float>(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f32(uint8_t v) {
+  return static_cast<float>(v);
+}
+// rows whose values are not all bf16 values, rounded under `round_ops`
+template <typename T>
+constexpr bool kRoundsToBf16 =
+    std::is_same<T, float>::value || std::is_same<T, __half>::value;
 
 // One staged query component: (q - center) * scale, then the operand
 // rounding. Each step rounds once (no contraction), so a plain version
@@ -377,7 +387,7 @@ __device__ void scan_topk(Tiles& t, float* topd, int* topp,
           float v = 0.f;
           if (p < p_end && d0 + c < d) {
             v = to_f32(rows[(size_t)p * d + d0 + c]);
-            if (std::is_same<T, float>::value && round_ops) v = round_bf16(v);
+            if (kRoundsToBf16<T> && round_ops) v = round_bf16(v);
           }
           t.xs[c][r] = v;
         }

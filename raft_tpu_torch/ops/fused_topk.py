@@ -30,9 +30,23 @@ source's header. Two arms (``variant``), the reference's:
   only where more than R of a tile's top-k share a lane; the exact merge
   keeps everything else (k <= 256).
 
+The fold arm has two CUDA bodies: the shared core's
+(``csrc/scan_topk.cuh``, f32 dots on the CUDA cores, the stacks in shared
+memory), and one designed for Hopper (``csrc/fused_fold_hopper.cuh``:
+``wgmma`` distance tiles of 128 queries (64 at R = 3 and 4) x 128 rows
+from shared memory, the lane stacks in registers). :func:`fold_body`
+routes by shape and type: bf16 queries (which round f32 rows; bf16 rows
+as stored) with d a multiple of 16 whose block fits
+(:func:`fold_smem_bytes`: d <= 288 at R = 2, 352 at R = 3 and 4) and
+tiles of at most 2048 rows take the Hopper body; f32 queries, other
+widths and wider tiles keep the core's. The Hopper body sums each dot's
+exact bf16 products in another order than the plain version, so it is
+bit for bit the plain version only where every partial sum is exact.
+
 On a CUDA tensor :func:`fused_knn_topk` (and :func:`fused_knn_fold`, the
 fold's unmerged buffer) launches the kernel or raises; on a CPU tensor it
-runs the plain version; nothing else.
+runs the plain version; nothing else. Its ``launches`` counts every
+launch and ``by_body`` splits them by body ("core", "fold_hopper").
 """
 
 from __future__ import annotations
@@ -57,6 +71,12 @@ K_MAX = 256          # the kernel's per-block top-k capacity
 _QT = 64             # queries per block (csrc/scan_topk.cuh QT)
 _RT = 64             # rows per tile (csrc/scan_topk.cuh RT)
 _TARGET_BLOCKS = 2048
+# a block's shared memory on the H100, and the Hopper fold body's block
+# (csrc/fused_fold_hopper.cuh): 128 queries at R = 2, else 64, and 2 ring
+# stages of 128-row bf16 chunks with their norms and keep flags; chunk
+# ids in 4 bits, so at most 16 chunks a tile
+SMEM_LIMIT = 232_448
+_FOLDH_C, _FOLDH_STAGES, _FOLDH_MAX_TILE = 128, 2, 2048
 
 
 def _operands(queries: torch.Tensor):
@@ -146,6 +166,35 @@ def fold_lane_stacks(dist: torch.Tensor, ids: torch.Tensor, R: int
     return torch.stack(sd, -2), torch.stack(si, -2)
 
 
+def fold_block_queries(k: int) -> int:
+    """Queries a Hopper fold block holds: 128 at R = 2, else 64."""
+    return 128 if fold_depth(k) == 2 else 64
+
+
+def fold_smem_bytes(d: int, k: int) -> int:
+    """Dynamic shared memory of one Hopper fold block at width ``d`` and
+    ``k``: its bf16 queries (:func:`fold_block_queries`) and two ring
+    stages of a 128-row bf16 chunk with its 128 norms and keep flags
+    (100,352 B at d = 128, R = 2)."""
+    return ((fold_block_queries(k) + _FOLDH_STAGES * _FOLDH_C) * int(d) * 2
+            + _FOLDH_STAGES * 2 * _FOLDH_C * 4)
+
+
+def fold_body(queries_dtype: torch.dtype, d: int, tile_n: int,
+              k: int) -> str:
+    """The body a fold launch at ``k`` takes: "fold_hopper"
+    (``csrc/fused_fold_hopper.cuh``) for bf16 queries (the operands'
+    compute type; f32 rows are rounded as they are staged) with ``d`` a
+    multiple of 16 whose block fits a block's shared memory
+    (:func:`fold_smem_bytes`) and ``tile_n`` <= 2048 (chunk ids in 4
+    bits); else "core" (the shared core's kFold2..4)."""
+    if queries_dtype != torch.bfloat16 or int(d) % 16 or \
+            int(tile_n) > _FOLDH_MAX_TILE or \
+            fold_smem_bytes(d, k) > SMEM_LIMIT:
+        return "core"
+    return "fold_hopper"
+
+
 def _check(queries, dataset, k, metric_kind, variant="exact", tile_n=None):
     if queries.dim() != 2 or dataset.dim() != 2 or \
             queries.shape[1] != dataset.shape[1]:
@@ -203,6 +252,7 @@ def fused_knn_topk(queries: torch.Tensor, dataset: torch.Tensor, k: int, *,
 
 
 fused_knn_topk.launches = 0
+fused_knn_topk.by_body = {"core": 0, "fold_hopper": 0}
 
 
 def fused_knn_fold(queries: torch.Tensor, dataset: torch.Tensor, k: int, *,
@@ -227,6 +277,15 @@ def fused_knn_fold(queries: torch.Tensor, dataset: torch.Tensor, k: int, *,
                    "fold", tile_n)
 
 
+def _count(body: str) -> None:
+    # counted on the module attribute, which a stand-in may replace
+    counted = fused_knn_topk
+    counted.launches += 1
+    by_body = getattr(counted, "by_body", None)
+    if by_body is not None:
+        by_body[body] = by_body.get(body, 0) + 1
+
+
 def _launch(queries, dataset, k, metric_kind, norms, qaux, keep,
             variant="exact", tile_n=None):
     dev = queries.device
@@ -239,6 +298,8 @@ def _launch(queries, dataset, k, metric_kind, norms, qaux, keep,
     x = dataset if dataset.dtype in (torch.float32, torch.bfloat16) \
         else dataset.float()
     x = x.contiguous()
+    body = (fold_body(queries.dtype, d, tile_n, k) if variant == "fold"
+            else "core")
     xn = _norms(x, metric_kind, bf16, norms)
     qa = _aux(q32, metric_kind, qaux)
     if xn is not None:
@@ -247,6 +308,9 @@ def _launch(queries, dataset, k, metric_kind, norms, qaux, keep,
     kp = None
     if keep is not None:
         kp = keep.to(device=dev, dtype=torch.int32).contiguous()
+    if body == "fold_hopper":
+        return _launch_fold_hopper(queries, x, xn, qa, kp, k, metric_kind,
+                                   tile_n)
     if variant == "fold":
         # a block per (64 queries, row tile), writing 128 R slots a query
         fold_r = fold_depth(k)
@@ -278,7 +342,39 @@ def _launch(queries, dataset, k, metric_kind, norms, qaux, keep,
                 int(metric_kind), int(bf16), fold_r, ptr(out_d), ptr(out_i),
                 stream)
     _build.check(lib, "fused_knn_topk", rc)
-    fused_knn_topk.launches += 1
+    _count("core")
+    return out_d, out_i
+
+
+def _launch_fold_hopper(queries, x, xn, qa, kp, k, metric_kind, tile_n):
+    """The fold through the Hopper body (:func:`fold_body`): bf16 queries
+    as given, rows as stored (bf16) or f32 (rounded as staged)."""
+    dev = queries.device
+    m, d = queries.shape
+    n = x.shape[0]
+    fold_r = fold_depth(k)
+    n_tiles = cdiv(n, int(tile_n))
+    width = n_tiles * 128 * fold_r
+    q = _build.aligned(queries.contiguous())
+    x, xn, kp = _build.aligned(x), _build.aligned(xn), _build.aligned(kp)
+    out_d = torch.empty((m, width), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m, width), dtype=torch.int32, device=dev)
+
+    lib = _build.load("fused_knn_topk")
+    fn = lib.fused_knn_fold_hopper
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+
+    ptr = _build.ptr
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(ptr(q), ptr(qa), ptr(x), int(x.dtype == torch.bfloat16),
+                ptr(xn), ptr(kp), m, n, d, int(tile_n), n_tiles,
+                int(metric_kind), fold_r, ptr(out_d), ptr(out_i), stream)
+    _build.check(lib, "fused_knn_fold_hopper", rc)
+    _count("fold_hopper")
     return out_d, out_i
 
 

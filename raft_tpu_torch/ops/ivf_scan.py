@@ -21,7 +21,8 @@ reference scans query 0 there; the caller never reads those slots).
 
 Operands. ``compute_dtype`` "bf16" rounds both operands to bf16 (the
 reference's bf16 compute); "f32" multiplies f32 queries by the rows
-widened exactly (f32, bf16 or int8 rows). The default follows the queries'
+widened exactly (f32, bf16, f16, int8 or uint8 rows; f16 rows, like f32,
+are rounded under "bf16"). The default follows the queries'
 type, as the reference's ``qv.dtype`` does.
 
 Residual queries (IVF-PQ, ``ivf_pq.py:2043-2062``). With ``centers``
@@ -128,8 +129,10 @@ from raft_tpu_torch.utils.precision import dist_dot, round_bf16
 
 _PLAIN_BUCKETS = 64     # buckets per plain-version batch
 # the kernel's storage_kind: dense rows by dtype, packed words by arm
-_STORAGE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-I8, I4, BITS, PQ4 = 2, 3, 4, 5
+I8, I4, BITS, PQ4, F16, U8 = 2, 3, 4, 5, 6, 7
+_STORAGE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: I8,
+                 torch.float16: F16, torch.uint8: U8}
+_DENSE = frozenset(_STORAGE_KIND.values())
 # the kernel's extraction arm by name (fold at depth R is 3 + R - 2), and
 # the binned arms' slots per bin
 EXTRACTS = {"exact": 0, "binned": 1, "binned_deep": 2, "fold": 3}
@@ -320,8 +323,9 @@ def out_width(k: int, extract: str) -> int:
 
 def storage_kind(storage: torch.Tensor, packed_i4: bool = False,
                  packed_bits: bool = False, pq_centers=None) -> int:
-    """The kernel's storage kind: 0-2 dense f32 / bf16 / int8 rows, or the
-    packed arm I4 / BITS / PQ4; raises on an arm clash or a bad type."""
+    """The kernel's storage kind: dense f32 / bf16 / int8 / f16 / uint8
+    rows (0, 1, I8, F16, U8), or the packed arm I4 / BITS / PQ4; raises on
+    an arm clash or a bad type."""
     n_arms = int(packed_i4) + int(packed_bits) + int(pq_centers is not None)
     if n_arms > 1:
         raise ValueError("packed_i4, packed_bits and pq_centers are "
@@ -336,15 +340,15 @@ def storage_kind(storage: torch.Tensor, packed_i4: bool = False,
         raise ValueError(f"storage must be [C, cap, d], got "
                          f"{tuple(storage.shape)}")
     if storage.dtype not in _STORAGE_KIND:
-        raise ValueError(f"storage must be f32, bf16 or int8, got "
-                         f"{storage.dtype}")
+        raise ValueError(f"storage must be f32, bf16 or int8 (or IVF-Flat's "
+                         f"f16 and uint8) rows, got {storage.dtype}")
     return _STORAGE_KIND[storage.dtype]
 
 
 def _geometry(storage, kind, pq_centers) -> Tuple[int, int, int]:
     """(C, cap, d): d is the width of the queries the storage is scored
     against."""
-    if kind < I4:
+    if kind in _DENSE:
         return tuple(storage.shape)
     C, nw, cap = storage.shape
     if kind == I4:
@@ -393,6 +397,10 @@ def _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
     if isinstance(scale, torch.Tensor) and tuple(scale.shape) != (C, d):
         raise ValueError(f"a per-list scale must be [{C}, {d}], got "
                          f"{tuple(scale.shape)}")
+    if kind in (F16, U8) and (centers is not None or isinstance(
+            scale, torch.Tensor) or scale != 1.0):
+        raise ValueError("f16 and uint8 rows are scanned with plain queries "
+                         "(no centers, scale 1)")
     if kind == PQ4 and (isinstance(scale, torch.Tensor) or scale != 1.0):
         raise ValueError("the pq4 arm is scale-free (its table holds the "
                          "codebook)")
@@ -402,7 +410,7 @@ def _check(storage, indices, list_sizes, bucket_list, bucket_q, queries, k,
         if tuple(row_scale.shape) != (C, cap):
             raise ValueError(f"row_scale must be [{C}, {cap}], got "
                              f"{tuple(row_scale.shape)}")
-    if metric_kind == COSINE and kind >= I4:
+    if metric_kind == COSINE and kind not in _DENSE:
         raise ValueError("the packed arms score L2 or inner product")
     if metric_kind != IP and (norms is None or
                               (qaux is None and centers is None)):
@@ -442,7 +450,8 @@ def ivf_list_scan_topk(storage: torch.Tensor, indices: torch.Tensor,
     (out_d [nb, G, w] f32 min-space, out_i [nb, G, w] int32 global ids),
     w = k, or 128 R for the fold arm.
 
-    ``storage`` [C, cap, d] f32, bf16 or int8, or [C, nw, cap] int32
+    ``storage`` [C, cap, d] f32, bf16, f16, int8 or uint8 (f16 and uint8
+    with plain queries: no ``centers``, ``scale`` 1), or [C, nw, cap] int32
     packed words; ``indices`` [C, cap] int32; ``list_sizes`` [C];
     ``bucket_list`` [nb]; ``bucket_q`` [nb, G]; ``queries`` [m, d];
     ``qaux`` [m] (||q||^2 for L2, ||q|| for cosine; None for inner product
@@ -482,12 +491,6 @@ ivf_list_scan_topk.launches = 0
 ivf_list_scan_topk.by_body = {"core": 0, "hopper": 0, "pq4_hopper": 0}
 
 
-def _aligned(t):
-    """``t``, or a copy where its address is not 16-byte aligned (the
-    Hopper body's cp.async loads)."""
-    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
             queries, qaux, norms, keep, k, metric_kind, bf16, centers, scale,
             pq_centers, row_scale, extract):
@@ -513,7 +516,7 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
         # residual or scaled queries it builds while staging
         q32 = round_bf16(q32)
     p = pl = nw = 0
-    if kind >= I4:
+    if kind not in _DENSE:
         nw = st.shape[1]
     if kind == PQ4:
         # a p or k whose tables (or bins) overflow a block's shared memory
@@ -533,9 +536,9 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
                 else "core")
     if body != "core":
         # the launch returns its CUDA error where the budget is exceeded
-        st = _aligned(st)
-        args.update(xn=_aligned(args["xn"]), kp=_aligned(args["kp"]),
-                    rs=_aligned(args["rs"]))
+        st = _build.aligned(st)
+        args.update({key: _build.aligned(args[key])
+                     for key in ("xn", "kp", "rs")})
     code = extract_code(extract, k, body)
     out_d = torch.empty((nb, G, w), dtype=torch.float32, device=dev)
     out_i = torch.empty((nb, G, w), dtype=torch.int32, device=dev)

@@ -2,7 +2,7 @@
 
     python3 -m raft_tpu_torch.tools.kernel_ab DIR_A DIR_B [DIR_C ...]
                                               [--order ABBA] [--out FILE]
-                                              [--kernels 12|3|2d|2q|...]
+                                              [--kernels 12|3|2d|2q|1f|...]
 
 Each DIR is the root of a checkout (for example a parent commit unpacked
 with ``git archive``). For each letter of ``--order`` (A the first DIR, B
@@ -44,7 +44,16 @@ to ``ivf_list_scan_topk`` at the arm the search took: held against the
 plain version, timed whole, by stage and with every list emptied, with
 the launch's body and the pq4 kernels' registers and spills. Each scan is
 held at the tolerance of the body its launch took (``chip_smoke``'s
-``scan_tolerance``); a disagreement ends the run. Alternating
+``scan_tolerance``); a disagreement ends the run. Kernel 1's fold arm
+(``--kernels 1f``): kernel 1 built at its three stage builds (with the
+fold's Hopper body's registers and spills where the checkout builds it);
+the fast brute force (``chip_smoke.fast_bf_path``: SIFT-like 1M x 128
+rows, 10,000 queries, k 10, bf16 candidates at k_cand 42 refined exactly)
+with its QPS and recall@10 beside the exact arm's, its fold launch
+captured and handed to ``fused_knn_fold``: held against the plain
+version (merged top-k) at the tolerance of the body it took through the
+same table, and timed whole and by stage (staging loads, epilogue and
+write-out; plus the dots; plus the lane-stack cascade). Alternating
 the checkouts (A B B A)
 on one card keeps the comparison free of the card's power limit and clocks,
 which differ between machines. Each run prints one JSON line; the last
@@ -73,6 +82,9 @@ def _child(root: str, kernels: str) -> dict:
 
     dev = torch.device("cuda", 0)
     run = {"root": root, "card": cs.phase_device(), "kernels": {}}
+    if "1f" in kernels:
+        run.update(_fold(cs, dev, run["kernels"]))
+        kernels = kernels.replace("1f", "")
     if "2d" in kernels:
         run.update(_deep(cs, dev, run["kernels"]))
         kernels = kernels.replace("2d", "")
@@ -106,7 +118,7 @@ def _scan_ab(cs, name, args, kw) -> dict:
     where the checkout records one."""
     import torch
 
-    from raft_tpu_torch.ops import _build, ivf_scan
+    from raft_tpu_torch.ops import ivf_scan
 
     fn = ivf_scan.ivf_list_scan_topk
     before = dict(getattr(fn, "by_body", {}))
@@ -123,11 +135,7 @@ def _scan_ab(cs, name, args, kw) -> dict:
     err = cs.compare(f"{extract} {name}", kd, ki, pd, pi,
                      **_tolerance(cs, body, args, kw))
     del kd, ki, pd, pi
-    whole = cs.cuda_ms(kern, reps=10)
-    ms = {}
-    for st in (0, 1):
-        with _build.only_stages(st):
-            ms[st] = cs.cuda_ms(kern, reps=10)
+    whole, ms = _stage_ms(cs, kern, reps=10)
     empty = (args[0], args[1], torch.zeros_like(args[2])) + tuple(args[3:])
     empty_ms = cs.cuda_ms(lambda: ivf_scan.ivf_list_scan_topk(*empty, **kw),
                           reps=10)
@@ -141,6 +149,80 @@ def _scan_ab(cs, name, args, kw) -> dict:
             "topk_ms": whole - ms[1], "empty_lists_ms": empty_ms,
             "bound_ms": max(bytes_ / cs.H100_HBM_BYTES_PER_S,
                             ops / peak) * 1e3}
+
+
+def _stage_ms(cs, kern, reps: int):
+    """(whole ms, {0: ms, 1: ms}): ``kern`` timed whole and at the stage
+    builds 0 and 1 (``_build.only_stages``)."""
+    from raft_tpu_torch.ops import _build
+
+    whole = cs.cuda_ms(kern, reps=reps)
+    ms = {}
+    for st in (0, 1):
+        with _build.only_stages(st):
+            ms[st] = cs.cuda_ms(kern, reps=reps)
+    return whole, ms
+
+
+def _fold(cs, dev, kernels: dict) -> dict:
+    """Kernel 1's fold arm at the fast brute force's captured launch, and
+    the fast path around it (module docstring)."""
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.neighbors.common import merge_topk
+    from raft_tpu_torch.ops import _build, fused_topk
+
+    _build.build_all(names=("fused_knn_topk",),
+                     stage_set=(_build.FULL, 1, 0))
+    log = _build.BUILD_LOG.get("fused_knn_topk", "").splitlines()
+    out = {"ptxas": [" ".join(log[i:i + 4]) for i, ln in enumerate(log)
+                     if "Compiling entry function" in ln and
+                     "fold_hopper" in ln]}
+    x = cs.sift_like(1_000_000, 128, seed=1, device=dev)
+    q = cs.sift_like(10_000, 128, seed=2, device=dev)
+    _, truth = brute_force.knn(q[:1000], x, 10, device=dev)
+    res = cs.fast_bf_path(dev, x, q, truth)
+    out["fast_bf"] = {key: res[key] for key in ("qps", "recall",
+                                                "exact_qps",
+                                                "exact_recall")}
+    args, kw = res["captured"]
+    del x, q, truth, res
+    torch.cuda.empty_cache()
+    fkw = {key: v for key, v in kw.items() if key != "variant"}
+    fn = fused_topk.fused_knn_topk
+    before = dict(getattr(fn, "by_body", {}))
+
+    def kern():
+        return fused_topk.fused_knn_fold(*args, **fkw)
+
+    kd, ki = kern()
+    body = next((b for b, c in getattr(fn, "by_body", {}).items()
+                 if c > before.get(b, 0)), "core")
+    pd, pi = fused_topk.fused_knn_fold_plain(*args, **fkw)
+    exact = torch.equal(kd, pd) and torch.equal(ki, pi)
+    queries, dataset, k = args[:3]
+    err = cs.compare(f"fold ({body}, merged)", *merge_topk(kd, ki, k),
+                     *merge_topk(pd, pi, k),
+                     **_tolerance(cs, body, args, fkw))
+    width = kd.shape[1]
+    del kd, ki, pd, pi
+    torch.cuda.empty_cache()
+    whole, ms = _stage_ms(cs, kern, reps=5)
+    m, d = queries.shape
+    n = dataset.shape[0]
+    bytes_ = (m * d * queries.element_size()
+              + n * d * dataset.element_size() + n * 4 + m * 4
+              + m * width * 8)
+    kernels["fold"] = {
+        "shape": [m, n, d, k, fkw["tile_n"]], "body": body,
+        "bit_exact": exact, "max_abs_err": err["max_abs_err"],
+        "tie_free_keys": err["tie_free_keys"], "ms": whole,
+        "staging_ms": ms[0], "dots_ms": ms[1] - ms[0],
+        "topk_ms": whole - ms[1],
+        "bytes_bound_ms": bytes_ / cs.H100_HBM_BYTES_PER_S * 1e3,
+        "ops_bound_ms": 2.0 * m * n * d / cs.H100_BF16_FLOPS * 1e3}
+    return out
 
 
 def _build_scan(match: str) -> list:

@@ -17,6 +17,13 @@ here on the input that showed it.
 5. IVF-PQ's and 6. CAGRA's default search on a CPU index take the
    reference's CPU route (its "auto" off the accelerator): the decode
    body and the scattered traversal.
+8. IVF-Flat over float16 and uint8 datasets: indexes the reference built
+   (rows stored as the dataset's type) load and search in the port, rows
+   kept as stored.
+9. ``select_k`` orders NaN as the reference's impl of the same name:
+   "top_k" by XLA's total order (the sign of a NaN counts), "hierarchical"
+   with NaN quarantined, "auto" through the reference's dispatch
+   (``dispatch_select_impl``).
 
 Tolerance: distances 1e-4 relative (and absolute), ids equal outside
 near-ties (tests/torch_parity.py).
@@ -29,6 +36,8 @@ import jax.numpy as jnp
 
 from raft_tpu.distance.pairwise import pairwise_distance as \
     jax_pairwise_distance
+from raft_tpu.matrix.select_k import dispatch_select_impl as \
+    jax_dispatch_select_impl
 from raft_tpu.matrix.select_k import select_k as jax_select_k
 from raft_tpu.neighbors import brute_force as jax_bf
 from raft_tpu.neighbors import cagra as jax_cagra
@@ -37,7 +46,7 @@ from raft_tpu.neighbors import ivf_pq as jax_pq
 from raft_tpu.neighbors import nn_descent as jax_nnd
 from raft_tpu_torch import convert
 from raft_tpu_torch.distance.pairwise import pairwise_distance
-from raft_tpu_torch.matrix.select_k import select_k
+from raft_tpu_torch.matrix.select_k import dispatch_select_impl, select_k
 from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq, \
     nn_descent
 from tests.oracles import naive_knn
@@ -270,3 +279,74 @@ def test_cagra_default_call_on_cpu_index(probe, tmp_path):
     ref = jax_cagra.search(jax_cagra.SearchParams(), jix, q, 10)
     got = cagra.search(cagra.SearchParams(), pix, q, 10)
     assert_topk_match(*got, *ref, 10, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "uint8"])
+def test_ivf_flat_f16_and_uint8_default_call(probe, tmp_path, dtype):
+    """Item 8: the reference stores IVF-Flat rows as the dataset's type;
+    the port loads such an index without widening it and its default
+    search (the plain exact scan on a CPU index) answers as the
+    reference's default call does."""
+    x, q = probe
+    if dtype == "uint8":
+        data = np.clip(x * 30 + 128, 0, 255).astype(np.uint8)
+        q = np.clip(q * 30 + 128, 0, 255).astype(np.float32)
+    else:
+        data = x.astype(np.float16)
+    jix = jax_ivf.build(jax_ivf.IndexParams(n_lists=16), data)
+    path = str(tmp_path / f"probe_{dtype}.ivf_flat")
+    jax_ivf.save(path, jix)
+    pix = ivf_flat.load(path, device="cpu")
+    assert pix.storage.dtype == getattr(torch, dtype)
+    ref = jax_ivf.search(jax_ivf.SearchParams(n_probes=4), jix, q, 10)
+    got = ivf_flat.search(ivf_flat.SearchParams(n_probes=4), pix, q, 10)
+    # the module's tolerance: uint8 rows' distances reach 4e4, where the
+    # expanded form's sums in two orders differ by ~1e-5 relative
+    assert_topk_match(*got, *ref, 10)
+
+
+_NAN = np.float32(np.nan)
+# +NaN, -NaN, +-inf and signed zeros, one column of each sign apart
+_NAN_ROWS = np.array([[_NAN, 1, 2, -_NAN, -1, 0.5],
+                      [np.inf, 1, -np.inf, _NAN, 0, -0.0],
+                      [-_NAN, 5, -np.inf, np.inf, 0, 0.0],
+                      [0.0, -0.0, 1, -0.0, 0.0, -_NAN]], np.float32)
+
+
+@pytest.mark.parametrize("k", [3, 6])
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("impl", ["top_k", "hierarchical", "auto"])
+def test_select_k_nan_order_matches_the_impl(impl, select_min, k):
+    """Item 9: values (bit for bit, the NaN's sign included) and ids as
+    the reference's same impl gives them, at both ends."""
+    rows = _NAN_ROWS
+    if impl == "hierarchical":
+        # its local top_k orders -0.0 before +0.0 and its merge tree takes
+        # them as equal; the NaN rule is the point here
+        rows = np.where(rows == 0, np.float32(0.0), rows)
+    jv, ji = jax_select_k(rows, k, select_min=select_min, impl=impl)
+    pv, pi = select_k(rows, k, select_min=select_min, impl=impl,
+                      device="cpu")
+    np.testing.assert_array_equal(np_(pi), np.asarray(ji))
+    np.testing.assert_array_equal(np_(pv).view(np.int32),
+                                  np.asarray(jv).view(np.int32))
+
+
+@pytest.mark.parametrize("batch, n, k, dtype, op, fallback", [
+    (4, 6, 3, np.float32, "select_k", None),
+    (64, 8192, 64, np.float32, "select_k", None),
+    (10, 100_000, 300, np.float32, "select_k", None),
+    (10, 100_000, 300, np.int32, "select_k", None),
+    (10, 2000, 300, np.float32, "select_k", None),
+    (4, 30, 9, np.int32, "select_k", None),
+    (256, 1280, 10, np.float32, "merge_topk", "auto"),
+    (10_000, 125_184, 42, np.float32, "merge_topk", "auto"),
+    (8, 20_000, 512, np.float32, "merge_topk", "auto")])
+def test_dispatch_select_impl_matches_reference(batch, n, k, dtype, op,
+                                                fallback):
+    want = jax_dispatch_select_impl(batch, n, k, dtype, op=op,
+                                    fallback=fallback)
+    got = dispatch_select_impl(batch, n, k,
+                               torch.from_numpy(np.zeros(1, dtype)).dtype,
+                               op=op, fallback=fallback, device="cpu")
+    assert got == want
