@@ -37,7 +37,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              body), and refused at cap 128; binned_deep through its
              Hopper body (int8, i4 and sign-bit rows, rot 40 to 128, k 1
              to 256, caps 256 to 640, L2, inner product and cosine, G off
-             a multiple of 64), bit for bit on small integers; the pq4
+             a multiple of 64), bit for bit on small integers; the exact
+             and binned arms through the Hopper arms' body likewise (k 1
+             to 64; a cap of 390 left to the core); the pq4
              arm through its Hopper body (exact, binned, binned_deep; k 1
              to 64, p 24 to 96 at pq_len 1 and 2, L2 and inner product,
              caps 256 to 640 and 390, a padding bucket), bit for bit on
@@ -128,8 +130,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              top-k selection; the local join by stage: candidate rows
              gathered, scores, merge; the packed and binned arms were timed on
              their paths); then the nvidia-smi line, one JSON line of
-             per-kernel numbers (binned from the IVF-Flat default search,
-             binned_deep from the refined IVF-PQ one, kernel 1's fold (its
+             per-kernel numbers (binned from the IVF-Flat default search
+             and, on the Hopper arms' body, from the DEEP-10M int8 and i4
+             default searches, binned_deep from the refined IVF-PQ one;
+             the int8, i4 and RaBitQ rows are their exact searches' scans,
+             on that body too; kernel 1's fold (its
              Hopper body, with its library yardstick) from the fast brute
              force, kernel 2's fold from IVF-Flat under the fold table; a
              fold's bound counts its candidate write), and
@@ -160,10 +165,15 @@ Kernel 1's Hopper fold body likewise: bit for bit on small integers,
 else within ``fold_atol`` (1.25 d 2^-24 of ||q|| times the largest row
 norm, twice that for L2) on sorted or merged rows, a lane's near-tied
 rival hidden.
+The exact and binned arms over the same rows (the Hopper arms' body) are
+held the same way, the binned arm also hiding a bin's near-tied rival.
 The CAGRA self-search, the refined IVF-PQ first stage and RaBitQ's first
-stage must take that body, and every launch of the pq4 rung's exact,
-default and refined default searches the pq4 Hopper body (launches by
-body printed), or the run fails after its report.
+stage must take the binned_deep body; the DEEP-10M int8 exact (k 10 and
+the refined search's 30) and default searches, the i4 and raw i4 rungs'
+exact and default searches and RaBitQ's exact search the Hopper arms'
+body; and every launch of the pq4 rung's exact, default and refined
+default searches the pq4 Hopper body (launches by body printed), or the
+run fails after its report.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -400,17 +410,21 @@ def scan_tolerance(body: str, args, kw) -> dict:
     """``compare``'s keywords for a launch on ``body`` at ``args``,
     ``kw``: kernel 2's (a key of ``ivf_list_scan_topk.by_body``) or kernel
     1's fold (``fused_knn_topk.by_body``, "fold_hopper", at
-    ``fused_knn_fold``'s arguments). The core at ATOL; the binned_deep
-    Hopper body at ``deep_atol``, the pq4 Hopper body at ``pq4_atol`` and
+    ``fused_knn_fold``'s arguments). The core at ATOL; the Hopper bodies
+    over int8, i4 and sign-bit rows (binned_deep "hopper", and the exact
+    and binned arms "hopper_exact" and "hopper_binned", whose dots are
+    the same) at ``deep_atol``, the pq4 Hopper body at ``pq4_atol`` and
     the fold's Hopper body at ``fold_atol``, all under the join rule; the
-    pq4 body's binned arms and the fold body (a lane's stack lists R of
-    its candidates) also hiding a near-tied rival (``hidden``)."""
+    binned arms of the Hopper arms' and pq4 bodies and the fold body (a
+    bin, or a lane's stack, lists one or R of its candidates) also hiding
+    a near-tied rival (``hidden``)."""
     if body == "core":
         return {"atol": ATOL}
-    atol = {"hopper": deep_atol, "pq4_hopper": pq4_atol,
+    atol = {"hopper": deep_atol, "hopper_exact": deep_atol,
+            "hopper_binned": deep_atol, "pq4_hopper": pq4_atol,
             "fold_hopper": fold_atol}[body](args, kw)
     return {"atol": atol, "join": True,
-            "hidden": body == "fold_hopper" or (
+            "hidden": body in ("fold_hopper", "hopper_binned") or (
                 body == "pq4_hopper" and kw.get("extract", "exact") in (
                     "binned", "binned_deep"))}
 
@@ -458,6 +472,18 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def scan_with_body(*args, **kw):
+    """Kernel 2 on ``args``, ``kw``: (out_d, out_i, the body its launch
+    took, a key of ``ivf_list_scan_topk.by_body``)."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    before = dict(ivf_scan.ivf_list_scan_topk.by_body)
+    kd, ki = ivf_scan.ivf_list_scan_topk(*args, **kw)
+    body = next((b for b, c in ivf_scan.ivf_list_scan_topk.by_body.items()
+                 if c > before.get(b, 0)), "core")
+    return kd, ki, body
 
 
 # ---------------------------------------------------------------------------
@@ -617,12 +643,13 @@ def phase_small_parity_int8(dev, g) -> None:
         if mk == ivf_scan.L2:
             kw["centers"] = c_rot
         xn = norms if mk == ivf_scan.L2 else None
-        kd, ki = ivf_scan.ivf_list_scan_topk(cache, ids, sizes, bl, bq,
-                                             q_rot, None, xn, kp, **kw)
-        pd, pi = ivf_scan.ivf_list_scan_topk_plain(cache, ids, sizes, bl, bq,
-                                                   q_rot, None, xn, kp, **kw)
+        args = (cache, ids, sizes, bl, bq, q_rot, None, xn, kp)
+        kd, ki, body = scan_with_body(*args, **kw)
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
+        # bf16 operands at rot 96 and 128 take the Hopper arms' body
         compare(f"ivf_list_scan_topk int8 rot={rot} k={k} metric={mk} "
-                f"keep={filt} {cd}", kd, ki, pd, pi)
+                f"keep={filt} {cd} ({body} body)", kd, ki, pd, pi,
+                **scan_tolerance(body, args, kw))
     phase_small_parity_packed(dev, g)
 
 
@@ -667,7 +694,6 @@ def phase_small_parity_packed(dev, g) -> None:
 
     log("parity (small, ragged): ivf_list_scan_topk packed arms and "
         "per-list scales")
-    by_body = ivf_scan.ivf_list_scan_topk.by_body
     C, cap, nb, G, m = 12, 384, 30, 256, 400
     L2, IP = ivf_scan.L2, ivf_scan.IP
     for arm, rot, p, pl, k, mk, filt, cd in [
@@ -708,20 +734,14 @@ def phase_small_parity_packed(dev, g) -> None:
         if mk == L2:
             kw["centers"] = c
             xn = torch.rand(C, cap, generator=g, device=dev) * 100 + 10
-        pq4_hopper = by_body.get("pq4_hopper", 0)
-        kd, ki = ivf_scan.ivf_list_scan_topk(storage, ids, sizes, bl, bq, q,
-                                             None, xn, kp, **kw)
-        hopper = by_body.get("pq4_hopper", 0) > pq4_hopper
-        pd, pi = ivf_scan.ivf_list_scan_topk_plain(storage, ids, sizes, bl,
-                                                   bq, q, None, xn, kp, **kw)
+        args = (storage, ids, sizes, bl, bq, q, None, xn, kp)
+        kd, ki, body = scan_with_body(*args, **kw)
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
         name = (f"ivf_list_scan_topk {arm} rot={rot}"
                 + (f" p={p}" if arm == "pq4" else "")
-                + f" k={k} metric={mk} keep={filt} {cd}"
-                + (" (pq4 Hopper body)" if hopper else ""))
-        compare(name, kd, ki, pd, pi, **scan_tolerance(
-            "pq4_hopper" if hopper else "core",
-            (storage, ids, sizes, bl, bq, q), kw))
-        if arm == "pq4" and not hopper and \
+                + f" k={k} metric={mk} keep={filt} {cd} ({body} body)")
+        compare(name, kd, ki, pd, pi, **scan_tolerance(body, args, kw))
+        if arm == "pq4" and body == "core" and \
                 not (torch.equal(kd, pd) and torch.equal(ki, pi)):
             raise SmokeFailure(f"{name}: not bit for bit")
     # pq4 tables past a block's shared memory (16 queries x 256 subspaces
@@ -829,7 +849,6 @@ def phase_small_parity_binned(dev) -> None:
     C, nb, G, m = 12, 30, 256, 400
     L2, IP = ivf_scan.L2, ivf_scan.IP
     bit_exact = {}
-    by_body = ivf_scan.ivf_list_scan_topk.by_body
     for arm, cap, rot, p, pl, k, mk, filt, cd, ex in [
             ("f32", 256, 24, 0, 0, 1, L2, True, "f32", "binned"),
             ("f32", 384, 40, 0, 0, 10, IP, False, "f32", "binned"),
@@ -855,28 +874,22 @@ def phase_small_parity_binned(dev) -> None:
         ed, ei = ivf_scan.ivf_list_scan_topk(*args, **kw)
         epd, epi = ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
         exact_bits = torch.equal(ed, epd) and torch.equal(ei, epi)
-        before = dict(by_body)
-        kd, ki = ivf_scan.ivf_list_scan_topk(*args, extract=ex, **kw)
+        kd, ki, body = scan_with_body(*args, extract=ex, **kw)
         pd, pi = ivf_scan.ivf_list_scan_topk_plain(*args, extract=ex, **kw)
-        pq4_hopper = by_body.get("pq4_hopper", 0) > before.get("pq4_hopper",
-                                                               0)
-        compare(name + (" (pq4 Hopper body)" if pq4_hopper else ""), kd, ki,
-                pd, pi, **scan_tolerance(
-                    "pq4_hopper" if pq4_hopper else "core", args,
-                    dict(kw, extract=ex)))
+        compare(f"{name} ({body} body)", kd, ki, pd, pi,
+                **scan_tolerance(body, args, dict(kw, extract=ex)))
         same = torch.equal(kd, pd) and torch.equal(ki, pi)
         bit_exact.setdefault(arm, []).append(same)
         # the Hopper bodies accumulate the dots otherwise: their bits are
-        # held on small integers (phase_small_parity_deep, _pq4)
-        core = not pq4_hopper and by_body.get("hopper", 0) == before.get(
-            "hopper", 0)
-        if exact_bits and not same and core:
+        # held on small integers (phase_small_parity_deep, _arms, _pq4)
+        if exact_bits and not same and body == "core":
             raise SmokeFailure(f"{name}: the exact arm is bit for bit its "
                                "plain version's, the binned arm is not")
     log("  bit for bit per storage kind (binned arm vs plain version): "
         + ", ".join(f"{arm} {sum(v)}/{len(v)}" for arm, v in
                     bit_exact.items()))
     phase_small_parity_deep(dev, g)
+    phase_small_parity_arms(dev, g)
     _, ids, sizes, bl, bq = args[:5]
     storage, kw, _, xn, _ = binned_case(g, dev, "f32", C, 128, 24)
     args = (storage, ids[:, :128].contiguous(), sizes.clamp_max(128), bl,
@@ -998,6 +1011,102 @@ def phase_small_parity_deep(dev, g) -> None:
                                "plain version differ")
     log(f"  Hopper body bit for bit on {n_bits} cases (all small-integer "
         "ones among them)")
+
+
+def phase_small_parity_arms(dev, g) -> None:
+    """Kernel 2's exact and binned arms through the Hopper arms' body
+    (``csrc/ivf_scan_arms.cuh``) against the plain version: int8 rows with
+    residual queries and per-list scales (L2) or scaled queries (inner
+    product), one scalar scale and one cosine case a arm, i4 and sign bits
+    with the row scale (RaBitQ at rot 100, off a whole word), rot 40 to
+    128, k 1 to 64, caps 256, 384 and 640, with binned_case's duplicate
+    rows, an empty list, one of 5 rows (shorter than k), sizes off a
+    multiple of 128, the keep filter, empty query slots and G off a
+    multiple of 64. Every launch must take the body ``scan_body`` names:
+    the arms' body, except an exact case at cap 390 (not a multiple of
+    128), which the route leaves to the core. The dots sum in another
+    order than the plain version's, so random cases hold ``compare`` at
+    ``scan_tolerance``, and small-integer cases, where every dot is exact
+    in any order, must agree bit for bit."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    log("parity (small, ragged): ivf_list_scan_topk exact and binned, "
+        "Hopper arms' body")
+    L2, IP, COS = ivf_scan.L2, ivf_scan.IP, ivf_scan.COSINE
+    by_body = ivf_scan.ivf_list_scan_topk.by_body
+    n_bits = n_small = 0
+    for ex, arm, cap, rot, k, mk, filt, G, small in [
+            ("exact", "i8", 256, 96, 10, L2, True, 256, False),
+            ("exact", "i8", 384, 96, 30, IP, False, 100, False),
+            ("exact", "i8", 640, 128, 64, L2, True, 200, False),
+            ("exact", "i8", 384, 48, 1, L2, False, 130, False),
+            ("exact", "i8 scalar", 640, 96, 40, L2, False, 256, False),
+            ("exact", "i8 cosine", 384, 128, 30, COS, True, 130, False),
+            ("exact", "i4", 256, 96, 10, L2, True, 100, False),
+            ("exact", "i4", 640, 128, 64, IP, False, 256, False),
+            ("exact", "i4", 384, 40, 1, L2, False, 200, False),
+            ("exact", "bits", 384, 96, 40, L2, True, 256, False),
+            ("exact", "bits", 640, 128, 14, IP, False, 100, False),
+            ("exact", "bits", 256, 100, 64, L2, False, 200, False),
+            ("exact", "i8", 390, 96, 10, L2, True, 100, False),
+            ("binned", "i8", 256, 96, 10, L2, True, 256, False),
+            ("binned", "i8", 384, 128, 13, IP, False, 100, False),
+            ("binned", "i8", 640, 96, 64, L2, True, 200, False),
+            ("binned", "i8 cosine", 384, 128, 10, COS, False, 130, False),
+            ("binned", "i4", 384, 96, 10, L2, True, 256, False),
+            ("binned", "i4", 256, 40, 1, IP, False, 100, False),
+            ("binned", "bits", 384, 96, 13, L2, False, 200, False),
+            ("binned", "bits", 640, 128, 40, IP, True, 256, False),
+            ("exact", "i8", 384, 96, 10, L2, True, 200, True),
+            ("exact", "i8", 640, 128, 64, IP, False, 100, True),
+            ("exact", "i4", 640, 96, 40, L2, True, 256, True),
+            ("exact", "i4", 384, 128, 1, IP, False, 130, True),
+            ("exact", "bits", 384, 96, 40, L2, False, 256, True),
+            ("exact", "bits", 640, 128, 30, L2, True, 200, True),
+            ("binned", "i8", 256, 96, 10, L2, True, 256, True),
+            ("binned", "i8", 640, 128, 64, IP, False, 100, True),
+            ("binned", "i4", 384, 96, 13, L2, False, 200, True),
+            ("binned", "i4", 640, 40, 30, IP, True, 130, True),
+            ("binned", "bits", 640, 128, 40, L2, True, 256, True),
+            ("binned", "bits", 256, 100, 1, IP, False, 100, True)]:
+        kind = arm.split()[0]
+        args, kw = scan_case(g, dev, kind, cap, rot, 0, 0, k,
+                             IP if mk == COS else mk, filt, "bf16", G=G)
+        if arm == "i8 scalar":
+            kw["scale"] = 0.0371
+        if arm == "i8 cosine":
+            q = args[5]
+            args = args[:6] + (torch.sqrt((q * q).sum(1)),
+                               torch.rand(args[0].shape[:2], generator=g,
+                                          device=dev) * 100 + 10, args[8])
+            kw["metric_kind"] = COS
+        if small:
+            args, kw = small_integers(g, dev, args, kw)
+        kw["extract"] = ex
+        width = args[5].shape[1]
+        want = ivf_scan.scan_body(ivf_scan.storage_kind(
+            args[0], kw.get("packed_i4", False), kw.get("packed_bits",
+                                                        False)),
+            True, width, k, ex, cap)
+        name = (f"ivf_list_scan_topk {ex} ({want} body) {arm} cap={cap} "
+                f"rot={rot} k={k} metric={mk} keep={filt} G={G}"
+                + (" small integers" if small else ""))
+        if want != ("core" if cap % 128 else f"hopper_{ex}"):
+            raise SmokeFailure(f"{name}: scan_body routed it to {want}")
+        before = by_body.get(want, 0)
+        kd, ki = ivf_scan.ivf_list_scan_topk(*args, **kw)
+        if by_body.get(want, 0) != before + 1:
+            raise SmokeFailure(f"{name}: did not take the {want} body")
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
+        compare(name, kd, ki, pd, pi, **scan_tolerance(want, args, kw))
+        same = torch.equal(kd, pd) and torch.equal(ki, pi)
+        n_bits += same
+        n_small += small
+        if small and not same:
+            raise SmokeFailure(f"{name}: every dot is exact, yet kernel and "
+                               "plain version differ")
+    log(f"  Hopper arms' body bit for bit on {n_bits} cases (all {n_small} "
+        "small-integer ones among them)")
 
 
 def phase_small_parity_pq4(dev) -> None:
@@ -1789,9 +1898,7 @@ def measure_ivf(args, kw, launches, arm: str = "",
     def plain():
         return ivf_scan.ivf_list_scan_topk_plain(*args, **kw)
 
-    kd, ki = kern()
-    body = next((b for b, c in ivf_scan.ivf_list_scan_topk.by_body.items()
-                 if c > bodies.get(b, 0)), "core")
+    kd, ki, body = scan_with_body(*args, **kw)
     pd, pi = plain()
     exact = torch.equal(kd, pd) and torch.equal(ki, pi)
     if kw.get("extract") == "fold":
@@ -1820,6 +1927,8 @@ def measure_ivf(args, kw, launches, arm: str = "",
     return {"name": name, "route": "cuda",
             "source": "raft_tpu_torch/ops/csrc/" + {
                 "hopper": "ivf_scan_deep.cuh",
+                "hopper_exact": "ivf_scan_arms.cuh",
+                "hopper_binned": "ivf_scan_arms.cuh",
                 "pq4_hopper": "ivf_scan_pq4.cuh"}.get(
                     body, "ivf_list_scan_topk.cu"),
             "replaces": _ARM_SITE[arm.split()[0] if arm else ""],
@@ -1844,9 +1953,9 @@ def default_search(label: str, first, q, truth, k: int,
     0 just before it, read just after), a profile, and the arm at the
     search's shapes (``measure_ivf``; where the core's arm is not bit for
     bit its plain version, the exact arm on the same inputs must not be
-    either; the Hopper binned_deep body, whose dots sum in another order,
-    is held to ``compare``'s tolerance and equal ids on tie-free keys).
-    Launches are also split by body ("core", "hopper").
+    either; the Hopper bodies, whose dots sum in another order, are held
+    to ``scan_tolerance``). Launches are also split by body (the keys of
+    ``ivf_list_scan_topk.by_body``).
     Gates, each listed in ``"failed"``: recall within
     ``RECALL_LOSS_BUDGET`` of the exact run's on the same index and
     queries (raw, and refined where refined), and ``floor`` /
@@ -1893,11 +2002,11 @@ def default_search(label: str, first, q, truth, k: int,
     kern = measure_ivf(a, kw, launches[arm], arm=f"{arm} {label}",
                        plain_reps=1)
     failed = []
-    # the Hopper body sums the dots in another order (its bits are held on
-    # small integers, phase_small_parity_deep); the core's arms keep what
-    # the exact arm keeps
-    if not kern["bit_exact"] and not (bodies.get("hopper")
-                                      or bodies.get("pq4_hopper")):
+    # the Hopper bodies sum the dots in another order (their bits are held
+    # on small integers, phase_small_parity_deep, _arms, _pq4); the core's
+    # arms keep what the exact arm keeps
+    if not kern["bit_exact"] and not any(
+            c for b, c in bodies.items() if b != "core"):
         ekw = dict(kw, extract="exact")
         ed, ei = ivf_scan.ivf_list_scan_topk(*a, **ekw)
         pd, pi = ivf_scan.ivf_list_scan_topk_plain(*a, **ekw)
@@ -2499,16 +2608,23 @@ def phase_small_ivf_pq(dev) -> None:
                          ("binned", ivf_pq.SearchParams(
                              n_probes=8, scan_impl="pallas"))):
             before = ivf_scan.ivf_list_scan_topk.launches
+            bodies = dict(ivf_scan.ivf_list_scan_topk.by_body)
             kd, ki = ivf_pq.search(sp, ix, q, 10)
             if ivf_scan.ivf_list_scan_topk.launches != before + 1:
                 raise SmokeFailure("small IVF-PQ search did not launch "
                                    "kernel 2")
+            body = next((b for b, c in
+                         ivf_scan.ivf_list_scan_topk.by_body.items()
+                         if c > bodies.get(b, 0)), "core")
             # on a CPU index "auto" is the decode body (the reference's
             # CPU route): the kernel's plain version is named
             pd, pi = ivf_pq.search(dataclasses.replace(
                 sp, scan_impl="pallas_interpret"), cpu_copy(ix), q.cpu(), 10)
+            # the Hopper arms' body (rot 96, bf16) sums the dots in another
+            # order: compare's join rule, and a bin's hidden rival
             compare(f"ivf_pq.search 20k x 96, 64 lists, {metric.name}, "
-                    f"{what} arm", kd.cpu(), ki.cpu(), pd, pi)
+                    f"{what} arm ({body} body)", kd.cpu(), ki.cpu(), pd, pi,
+                    join=body != "core", hidden=body == "hopper_binned")
 
 
 def cpu_copy(ix):
@@ -2553,18 +2669,24 @@ def phase_small_ivf_pq_rungs(dev) -> None:
                          ("binned", ivf_pq.SearchParams(
                              n_probes=8, scan_impl="pallas"))):
             before = ivf_scan.ivf_list_scan_topk.launches
+            bodies = dict(ivf_scan.ivf_list_scan_topk.by_body)
             kd, ki = ivf_pq.search(sp, ix, q, 10)
             if ivf_scan.ivf_list_scan_topk.launches != before + 1:
                 raise SmokeFailure(f"small IVF-PQ {kind} search did not "
                                    "launch kernel 2")
+            body = next((b for b, c in
+                         ivf_scan.ivf_list_scan_topk.by_body.items()
+                         if c > bodies.get(b, 0)), "core")
             pd, pi = ivf_pq.search(dataclasses.replace(
                 sp, scan_impl="pallas_interpret"), cpu_ix, q.cpu(), 10)
-            # bf16 pq4 searches take the pq4 Hopper body
+            # bf16 pq4 searches take the pq4 Hopper body, the others at rot
+            # 96 the Hopper arms' body
             pq4 = kind == "pq4"
             compare(f"ivf_pq.search 20k x 96, 64 lists, {kind} cache, "
-                    f"{what} arm", kd.cpu(), ki.cpu(), pd, pi,
+                    f"{what} arm ({body} body)", kd.cpu(), ki.cpu(), pd, pi,
                     atol=pq4_search_atol(ix, q).cpu() if pq4 else ATOL,
-                    join=pq4, hidden=pq4 and what == "binned")
+                    join=body != "core",
+                    hidden=body != "core" and what == "binned")
 
 
 def timed_patches(secs: dict, patches):
@@ -2663,6 +2785,7 @@ def ivf_pq_path(dev, n=10_000_000, d=96, nq=10_000, n_lists=1024,
         _, truth = brute_force.knn(q[:1000], x, k, device=dev)
         torch.cuda.synchronize()
         launches = rec.launches
+        by_arm, by_body = dict(rec.by_arm), dict(rec.by_body)
     finally:
         ivf_scan.ivf_list_scan_topk = orig
         for mod, attr, fn in saved:
@@ -2709,7 +2832,15 @@ def ivf_pq_path(dev, n=10_000_000, d=96, nq=10_000, n_lists=1024,
 
     rtimes = timed_batches(refined)
     rmed = statistics.median(rtimes)
-    _, rid = refined()
+    # the refined search's exact first stage (k 30), its launches recorded
+    orig, rec30 = record_scan({}, lambda a, kw: False)
+    try:
+        _, rid = refined()
+        torch.cuda.synchronize()
+        first30 = {"launches": dict(rec30.by_arm),
+                   "by_body": dict(rec30.by_body)}
+    finally:
+        ivf_scan.ivf_list_scan_topk = orig
     rrec = recall_of(rid[:1000], truth)
     log(f"  refined search (3k = {3 * k} candidates, exact refine to {k}): "
         f"{nq} queries in {rmed * 1e3:.2f} ms (median of 5) -> "
@@ -2746,6 +2877,7 @@ def ivf_pq_path(dev, n=10_000_000, d=96, nq=10_000, n_lists=1024,
               refine=lambda c: refine.refine(x, q, c, k, device=dev),
               exact_refined=rrec, refined_floor=REFINED_RECALL_FLOOR))])
     return {"captured": captured["scan"], "launches": launches,
+            "by_arm": by_arm, "by_body": by_body, "first30": first30,
             "build_s": build_s, "secs": secs, "recall": rec,
             "qps": nq / med, "refined_recall": rrec, "refined_qps": nq / rmed,
             "x": x, "q": q, "truth": truth, "index": index,
@@ -2812,7 +2944,7 @@ def ivf_pq_rungs_path(dev, x, q, truth, base, k=10, n_probes=128,
             out_d, out_i = ivf_pq.search(sp, index, q, kc)
             torch.cuda.synchronize()
             launches = rec.launches
-            bodies = dict(rec.by_body)
+            arms, bodies = dict(rec.by_arm), dict(rec.by_body)
         finally:
             ivf_scan.ivf_list_scan_topk = orig
             for mod, attr, fn in saved:
@@ -2909,7 +3041,7 @@ def ivf_pq_rungs_path(dev, x, q, truth, base, k=10, n_probes=128,
                      / med, "refined_recall": rrec, "refined_qps": rqps,
                      "refined_by": refined_by, "matched": matched,
                      "default": dflt, "default_refined": refined_dflt,
-                     "launches": launches, "by_body": bodies}
+                     "launches": launches, "by_arm": arms, "by_body": bodies}
         del index, captured, out_d, out_i
         torch.cuda.empty_cache()
     return out
@@ -3043,6 +3175,34 @@ def default_flat(index, q, truth, exact_recall, n_probes=64, k=10) -> dict:
                           k, exact_recall, floor=RECALL_FLOOR)
 
 
+def arms_body_failures(dres, rres) -> list:
+    """The exact and binned launches of the DEEP-10M int8 searches (exact
+    at k 10 and the refined search's 30, the default binned at 10), of
+    the i4 and raw i4 rungs (exact, default binned) and RaBitQ's exact
+    search (k 40) must take the Hopper arms' body
+    (``ops/ivf_scan.scan_body``): each search's launches by arm and by
+    body printed, a failure listed for each that did not."""
+    failed = []
+    for label, arms, bodies, arm in [
+            ("IVF-PQ int8 exact search (k 10)", dres["by_arm"],
+             dres["by_body"], "exact"),
+            ("IVF-PQ int8 refined search's exact first stage (k 30)",
+             dres["first30"]["launches"], dres["first30"]["by_body"],
+             "exact"),
+            *((d["label"], d["launches"], d["by_body"], "binned")
+              for d in (dres["defaults"][0], rres["i4"]["default"],
+                        rres["raw i4"]["default"])),
+            *((f"IVF-PQ rung {name} exact search", rres[name]["by_arm"],
+               rres[name]["by_body"], "exact")
+              for name in ("i4", "raw i4", "rabitq"))]:
+        log(f"{arm} arm's body, {label}: launches by arm {arms}, by body "
+            f"{bodies}")
+        if not arms.get(arm) or bodies.get(f"hopper_{arm}", 0) != arms[arm]:
+            failed.append(f"{label}: its {arm} launches did not all take "
+                          f"the Hopper arms' body ({bodies})")
+    return failed
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3106,6 +3266,12 @@ def main() -> int:
                          name=f"ivf_list_scan_topk:pq4 {arm}")
                     for key, arm in (("default", "binned"),
                                      ("default_refined", "binned_deep"))]
+        # the binned arm on the Hopper arms' body, from the default int8
+        # and i4 searches at DEEP-10M
+        kernels += [dict(run["kernel"], name=f"ivf_list_scan_topk:binned "
+                         f"{cache}") for cache, run in (
+                             ("int8", dres["defaults"][0]),
+                             ("i4", rres["i4"]["default"]))]
         # one row per binned arm: binned from the IVF-Flat main path's
         # default search, binned_deep from the refined IVF-PQ search's
         # first stage; the other default runs are reported above
@@ -3155,6 +3321,7 @@ def main() -> int:
                 bodies.get("hopper", 0) != arms["binned_deep"]:
             failed.append(f"{label}: its binned_deep launches did not all "
                           f"take the Hopper body ({bodies})")
+    failed += arms_body_failures(dres, rres)
     # every bf16 pq4 launch of the pq4 rung's path must take the pq4
     # Hopper body (ops/ivf_scan.pq4_body): the exact search, the default
     # (binned at k) and the refined default (binned_deep at 3k)

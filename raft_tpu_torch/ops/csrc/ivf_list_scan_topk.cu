@@ -80,9 +80,17 @@
 // block, bf16 tables staged once. bf16 operands take it where its block
 // fits (ops/ivf_scan.py:pq4_body); f32 operands, the fold arms and wider
 // tables keep ivf_pq4_scan_topk_kernel below.
+//
+// The exact and binned arms over int8, i4 and sign-bit rows have a second
+// body too, on the binned_deep Hopper body (ivf_scan_arms.cuh, extract
+// codes 10 and 11): bf16 operands, d <= 128 (the int8 kind's a multiple of
+// 16), k <= 64 and a cap that is a multiple of 128 take it where the
+// caller routes them (ops/ivf_scan.py:scan_body); the other modes keep
+// this file's.
 #include "scan_topk.cuh"
 #include "ivf_scan_deep.cuh"
 #include "ivf_scan_pq4.cuh"
+#include "ivf_scan_arms.cuh"
 
 using namespace rtt;
 
@@ -549,8 +557,10 @@ static int launch_pq4(const uint32_t* storage, const int* indices,
 // storage, norms, keep and row_scale 16-byte aligned), 7-9 exact, binned
 // and binned_deep through the pq4 Hopper body (kind 5, round_ops, L2 or
 // inner product, its block within a block's shared memory; storage, norms
-// and keep 16-byte aligned); out_d / out_i [nb, G, k], or [nb, G, 128 R]
-// for fold. Returns a cudaError_t code.
+// and keep 16-byte aligned); 10 and 11 exact and binned through the
+// Hopper arms' body (kinds 2-4 as code 6, k <= 64, cap a multiple of 128);
+// out_d / out_i [nb, G, k], or [nb, G, 128 R] for fold. Returns a
+// cudaError_t code.
 extern "C" int ivf_list_scan_topk(
     const void* storage, int storage_kind, const void* indices,
     const void* list_sizes, const void* bucket_list, const void* bucket_q,
@@ -562,8 +572,26 @@ extern "C" int ivf_list_scan_topk(
   if (k < 1 || k > KMAX || cap < 1 || d < 1 || nb < 1 || G < 1 ||
       storage_kind < 0 || storage_kind > 7 || extract < kExact ||
       (extract > kFold4 && extract != deep::kBinnedDeepHopper &&
-       !pq4h::is_code(extract)))
+       !pq4h::is_code(extract) && !arms::is_code(extract)))
     return (int)cudaErrorInvalidValue;
+  if (arms::is_code(extract)) {
+    if (cap % NBINS != 0 || cap / NBINS > 65536 ||
+        (extract == arms::kBinnedHopper && cap <= NBINS) ||
+        (storage_kind >= 3 && (nw < 1 || (storage_kind == 3 && d != 8 * nw) ||
+                               (storage_kind == 4 && d != 32 * nw))))
+      return (int)cudaErrorInvalidValue;
+    return arms::launch(
+        extract, storage_kind, storage, static_cast<const int*>(indices),
+        static_cast<const int*>(list_sizes),
+        static_cast<const int*>(bucket_list),
+        static_cast<const int*>(bucket_q), static_cast<const float*>(queries),
+        static_cast<const float*>(qaux), static_cast<const float*>(norms),
+        static_cast<const int*>(keep), static_cast<const float*>(centers),
+        scale, static_cast<const float*>(scale_vec),
+        static_cast<const float*>(row_scale), cap, d, nw, nb, G, k, metric,
+        round_ops, static_cast<float*>(out_d), static_cast<int*>(out_i),
+        static_cast<cudaStream_t>(stream));
+  }
   if (pq4h::is_code(extract)) {
     if (storage_kind != 5 || scale_vec != nullptr || d != p * pl)
       return (int)cudaErrorInvalidValue;

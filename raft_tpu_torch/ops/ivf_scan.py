@@ -93,6 +93,16 @@ int8, i4 and sign-bit rows with bf16 operands at d <= 128 take the Hopper
 body; the rest keep the core's. Both keep what the reference's arm keeps;
 the Hopper body sums each dot's f32 products in another order.
 
+The exact and binned arms over the same three row kinds have a Hopper
+body as well (``csrc/ivf_scan_arms.cuh``), on the binned_deep body's
+query preparation, ring and dots: binned keeps each (query, bin)'s best
+distance and chunk in its owner's registers, exact buffers each query's
+candidates under its k-th distance of the tile before and merges them
+into top-k lists held by one warp. :func:`scan_body` routes by mode, k
+and cap: int8 (``rot`` a multiple of 16), i4 and sign-bit rows with bf16
+operands at ``rot`` <= 128 take it at k <= 64 on a cap that is a
+multiple of 128; the rest keep the core's.
+
 The pq4 arm has two CUDA bodies as well: the core's pq4 kernel (f32
 tables in shared memory, one lookup and add per (query, row, subspace)),
 and one designed for Hopper (``csrc/ivf_scan_pq4.cuh``: the reference's
@@ -110,8 +120,8 @@ sum is exact.
 On a CUDA tensor :func:`ivf_list_scan_topk` launches
 ``csrc/ivf_list_scan_topk.cu`` or raises; on a CPU tensor it runs
 :func:`ivf_list_scan_topk_plain`; nothing else. Its ``launches`` counts
-every launch and ``by_body`` splits them by body ("core", "hopper",
-"pq4_hopper").
+every launch and ``by_body`` splits them by body ("core", "hopper" for
+binned_deep, "hopper_exact", "hopper_binned", "pq4_hopper").
 """
 
 from __future__ import annotations
@@ -151,6 +161,13 @@ _DEEP_SLOTS, _DEEP_STAGES, _DEEP_STATIC = 64 * 128 * 24, 2, 512
 # rows of 260 floats (k > 32), 256 B of query ids and qaux
 PQ4_HOPPER = 7
 _PQ4_Q, _PQ4_T, _PQ4_STAGES, _PQ4_DIST_LD, _PQ4_STATIC = 32, 256, 2, 260, 256
+# the extract codes of the exact and binned arms through the Hopper arms'
+# body, the largest k it takes, and its exact arm's buffer: 64 queries x
+# 128 rows of an f32 distance and a row byte, 64 counts and thresholds
+# (its lists add 64 k (f32, int32)) (csrc/ivf_scan_arms.cuh)
+HOPPER_EXACT, HOPPER_BINNED = 10, 11
+ARMS_K_MAX = 64
+_ARMS_BUFFER = 64 * 128 * 5 + 64 * 8
 
 # the per-list recall budget the binned arm is judged against when the
 # caller does not say (the SearchParams default)
@@ -230,6 +247,72 @@ def binned_deep_body(kind: int, round_ops: bool, rot: int) -> str:
     return "hopper"
 
 
+def scan_body(kind: int, round_ops: bool, rot: int, k: int, extract: str,
+              cap: int) -> str:
+    """The body a launch over rows of storage ``kind`` at the kernel's
+    width ``rot`` takes for ``k`` of a list capacity ``cap`` at
+    ``extract``: where :func:`binned_deep_body` gives "hopper" (int8 rows
+    at ``rot`` a multiple of 16, i4 and sign bits, bf16 operands, ``rot``
+    <= 128), binned_deep takes "hopper" (``csrc/ivf_scan_deep.cuh``), and
+    the exact and binned arms "hopper_exact" and "hopper_binned"
+    (``csrc/ivf_scan_arms.cuh``) at k <= 64 on a cap that is a multiple
+    of 128; else "core" (the fold arms, larger k, other caps, other kinds
+    and f32 operands; the pq4 kind routes by :func:`pq4_body`)."""
+    if extract not in ("exact", "binned", "binned_deep") or \
+            binned_deep_body(kind, round_ops, rot) == "core":
+        return "core"
+    if extract == "binned_deep":
+        return "hopper"
+    if k > ARMS_K_MAX or cap % _BINS:
+        return "core"
+    return "hopper_" + extract
+
+
+def _ring_stage_bytes(kind: int, rot: int, n_sides: int) -> int:
+    """One ring stage of the Hopper bodies over ``kind``'s rows: a 128-row
+    tile (int8 128 rot B, i4 64 rot, sign words 16 rot) and 512 B for each
+    side array."""
+    rows = 128 * (rot if kind == I8 else 4 * (rot // 8) if kind == I4
+                  else 4 * -(-rot // 32))
+    return rows + 512 * n_sides
+
+
+def _check_hopper_kind(kind: int, body: str) -> None:
+    if kind not in (I8, I4, BITS):
+        raise ValueError(f"the Hopper {body} body takes storage kinds {I8}, "
+                         f"{I4} and {BITS}, not {kind}")
+
+
+def arms_smem_bytes(kind: int, rot: int, k: int, extract: str,
+                    norms: bool = True, keep: bool = True,
+                    row_scale: bool = False) -> int:
+    """Shared memory of one block of the Hopper arms' body (dynamic and
+    static) for rows of ``kind`` at width ``rot``, ``k`` and ``extract``
+    ("exact" or "binned") with the side arrays named: the prepared
+    queries (2 KB a 16-dim k-step), two ring stages, then the exact arm's
+    buffer (41,472 B) and 64 lists of k (f32, int32), or for binned at
+    least the 64 x 128 slots of 6 B that reuse the front after the scan;
+    and 512 B of query ids and qaux. Two blocks share an SM where twice
+    this fits its 228 KB.
+    Raises where it exceeds a block's 232,448 B or the body does not take
+    the kind or the arm."""
+    _check_hopper_kind(kind, "arms'")
+    if extract not in ("exact", "binned"):
+        raise ValueError(f"the Hopper arms' body takes the exact and binned "
+                         f"arms, not {extract!r}")
+    ksteps = (rot // 16 if kind == I8 else 2 * -(-(rot // 8) // 4)
+              if kind == I4 else 2 * -(-rot // 32))
+    scan = 2048 * ksteps + _DEEP_STAGES * _ring_stage_bytes(
+        kind, rot, int(norms) + int(keep) + int(row_scale))
+    total = (scan + _ARMS_BUFFER + 64 * k * 8 if extract == "exact"
+             else max(scan, 64 * 128 * 6)) + _DEEP_STATIC
+    if total > SMEM_LIMIT:
+        raise ValueError(f"the Hopper arms' body needs {total} B of shared "
+                         f"memory at rot={rot}, more than a block's "
+                         f"{SMEM_LIMIT}")
+    return total
+
+
 def deep_smem_bytes(kind: int, rot: int, norms: bool = True,
                     keep: bool = True, row_scale: bool = False) -> int:
     """Shared memory of one Hopper-body block (dynamic and static) for rows
@@ -238,12 +321,9 @@ def deep_smem_bytes(kind: int, rot: int, norms: bool = True,
     words 16 rot) and 512 B for each side array, and the query ids and
     qaux. Raises where it exceeds a block's 232,448 B or the body does not
     take the kind."""
-    if kind not in (I8, I4, BITS):
-        raise ValueError(f"the Hopper binned_deep body takes storage kinds "
-                         f"{I8}, {I4} and {BITS}, not {kind}")
-    rows = 128 * (rot if kind == I8 else 4 * (rot // 8) if kind == I4
-                  else 4 * -(-rot // 32))
-    stage = rows + 512 * (int(norms) + int(keep) + int(row_scale))
+    _check_hopper_kind(kind, "binned_deep")
+    stage = _ring_stage_bytes(kind, rot,
+                              int(norms) + int(keep) + int(row_scale))
     total = _DEEP_SLOTS + _DEEP_STAGES * stage + _DEEP_STATIC
     if total > SMEM_LIMIT:
         raise ValueError(f"the Hopper binned_deep body needs {total} B of "
@@ -305,10 +385,15 @@ def pq4_body(round_ops: bool, p: int, pl: int, k: int, extract: str) -> str:
 
 def extract_code(extract: str, k: int, body: str = "core") -> int:
     """The C entry's extract code: the arm's, at the fold's depth;
-    ``HOPPER_DEEP`` for binned_deep through the Hopper body; or
+    ``HOPPER_DEEP`` for binned_deep through the Hopper body;
+    ``HOPPER_EXACT`` and ``HOPPER_BINNED`` for the Hopper arms' body; or
     ``PQ4_HOPPER`` plus the arm's for the pq4 Hopper body."""
     if extract == "binned_deep" and body == "hopper":
         return HOPPER_DEEP
+    if body == "hopper_exact":
+        return HOPPER_EXACT
+    if body == "hopper_binned":
+        return HOPPER_BINNED
     if body == "pq4_hopper":
         return PQ4_HOPPER + EXTRACTS[extract]
     return EXTRACTS[extract] + (fold_depth(k) - 2 if extract == "fold"
@@ -488,7 +573,8 @@ def ivf_list_scan_topk(storage: torch.Tensor, indices: torch.Tensor,
 
 
 ivf_list_scan_topk.launches = 0
-ivf_list_scan_topk.by_body = {"core": 0, "hopper": 0, "pq4_hopper": 0}
+ivf_list_scan_topk.by_body = {"core": 0, "hopper": 0, "hopper_exact": 0,
+                              "hopper_binned": 0, "pq4_hopper": 0}
 
 
 def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
@@ -532,8 +618,7 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
         body = ("pq4_hopper" if pq4_body(bf16, p, pl, k, extract) == "hopper"
                 else "core")
     else:
-        body = (binned_deep_body(kind, bf16, d) if extract == "binned_deep"
-                else "core")
+        body = scan_body(kind, bf16, d, k, extract, cap)
     if body != "core":
         # the launch returns its CUDA error where the budget is exceeded
         st = _build.aligned(st)

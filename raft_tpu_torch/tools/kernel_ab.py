@@ -2,7 +2,7 @@
 
     python3 -m raft_tpu_torch.tools.kernel_ab DIR_A DIR_B [DIR_C ...]
                                               [--order ABBA] [--out FILE]
-                                              [--kernels 12|3|2d|2q|1f|...]
+                                              [--kernels 12|3|2d|2q|2e|2b|1f]
 
 Each DIR is the root of a checkout (for example a parent commit unpacked
 with ``git archive``). For each letter of ``--order`` (A the first DIR, B
@@ -42,7 +42,18 @@ refined to 10), each timed as a pipeline (QPS, median of 5) with its
 recall@10 (raw, refined for the last), its first scan captured and handed
 to ``ivf_list_scan_topk`` at the arm the search took: held against the
 plain version, timed whole, by stage and with every list emptied, with
-the launch's body and the pq4 kernels' registers and spills. Each scan is
+the launch's body and the pq4 kernels' registers and spills. Kernel 2's
+exact and binned arms over int8 rows (``--kernels 2e`` and ``2b``, which
+may be given together): kernel 2 built at its three stage builds (with the
+Hopper arms' body's registers and spills where the checkout builds it);
+IVF-PQ at the DEEP-10M configuration with its default int8 cache (as for
+``2d``) and, for ``2e``, its RaBitQ cache; the searches, each timed as a
+pipeline (QPS, median of 5) with its recall@10: ``2e`` the exact arm
+(``local_recall_target`` 1.0) at k 10 and 30 on the int8 cache and at k
+40 on RaBitQ's, ``2b`` the default search at k 10 (binned); each first
+scan captured and handed to ``ivf_list_scan_topk`` at the arm the search
+took: held against the plain version, timed whole, by stage and with
+every list emptied, with the launch's body. Each scan is
 held at the tolerance of the body its launch took (``chip_smoke``'s
 ``scan_tolerance``); a disagreement ends the run. Kernel 1's fold arm
 (``--kernels 1f``): kernel 1 built at its three stage builds (with the
@@ -91,6 +102,10 @@ def _child(root: str, kernels: str) -> dict:
     if "2q" in kernels:
         run.update(_pq4(cs, dev, run["kernels"]))
         kernels = kernels.replace("2q", "")
+    if "2e" in kernels or "2b" in kernels:
+        run.update(_arms(cs, dev, run["kernels"], exact="2e" in kernels,
+                         binned="2b" in kernels))
+        kernels = kernels.replace("2e", "").replace("2b", "")
     if "1" in kernels or "2" in kernels:
         run.update(_scan_kernels(cs, dev, run["kernels"]))
     if "3" in kernels:
@@ -282,6 +297,62 @@ def _pq4(cs, dev, kernels: dict) -> dict:
             raise RuntimeError(f"pq4 {name} search took "
                                f"{kw.get('extract')}")
         kernels[f"pq4:{name}"] = _scan_ab(cs, name, a, kw)
+        del captured, a, kw, ids
+    return out
+
+
+def _arms(cs, dev, kernels: dict, exact: bool, binned: bool) -> dict:
+    """Kernel 2's exact and binned arms at the DEEP-10M int8 searches
+    (and RaBitQ's exact search), and the searches around them (module
+    docstring)."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq
+    from raft_tpu_torch.ops import ivf_scan
+
+    out = {"ptxas": _build_scan("ivf_arm_scan_kernel")}
+    x = cs.sift_like(10_000_000, 96, seed=3, device=dev)
+    q = cs.sift_like(10_000, 96, seed=4, device=dev)
+    _, truth = brute_force.knn(q[:1000], x, 10, device=dev)
+    index = ivf_pq.build(ivf_pq.IndexParams(
+        n_lists=1024, pq_dim=48, pq_bits=8, kmeans_trainset_fraction=0.1,
+        cache_dtype="auto"), x, batch_size=2_000_000, device=dev)
+    del x
+    torch.cuda.empty_cache()
+    searches = []
+    if exact:
+        rabitq = ivf_pq.attach_rabitq_cache(dataclasses.replace(
+            index, recon_cache=None))
+        searches += [("exact", "int8_k10", index, 1.0, 10),
+                     ("exact", "int8_k30", index, 1.0, 30),
+                     ("exact", "rabitq_k40", rabitq, 1.0, 40)]
+    if binned:
+        searches.append(("binned", "int8_k10", index, 0.95, 10))
+    for arm, name, ix, target, kc in searches:
+        sp = ivf_pq.SearchParams(n_probes=128, local_recall_target=target)
+        captured = {}
+        orig, _ = cs.record_scan(captured,
+                                 lambda a, kw: "scan" not in captured)
+        try:
+            ivf_pq.search(sp, ix, q, kc)
+        finally:
+            ivf_scan.ivf_list_scan_topk = orig
+
+        def search(sp=sp, ix=ix, kc=kc):
+            return ivf_pq.search(sp, ix, q, kc)
+
+        med = statistics.median(cs.timed_batches(search))
+        _, ids = search()
+        out[f"{arm}_{name}"] = {"qps": q.shape[0] / med,
+                                "recall": cs.recall_of(ids[:1000, :10],
+                                                       truth)}
+        a, kw = captured["scan"]
+        if kw.get("extract", "exact") != arm:
+            raise RuntimeError(f"{name} search took {kw.get('extract')}")
+        kernels[f"{arm}:{name}"] = _scan_ab(cs, name, a, kw)
         del captured, a, kw, ids
     return out
 

@@ -4,7 +4,9 @@
 * ``binned_deep_body`` routes exactly the modes the Hopper body covers
   (int8, i4 and sign-bit rows under bf16 operands at rot <= 128, the int8
   rows' rot a multiple of 16), and ``_launch`` hands the C entry that
-  body's extract code (a stand-in library records the call; no card).
+  body's extract code (a stand-in library records the call; no card);
+  the exact and binned arms of the same modes take the Hopper arms' body
+  (tests/test_torch_scan_hopper_arms.py).
 * ``deep_smem_bytes``: the body's block stays within a block's 232,448 B
   of shared memory at rot 96 and 128 and refuses what does not fit; its
   constants are the header's.
@@ -99,8 +101,10 @@ def _case(kind, rot, cap=256, C=3, nb=4, G=8, m=20, seed=0):
     (I8, 96, "binned_deep", True, 6, "hopper"),
     (I8, 128, "binned_deep", True, 6, "hopper"),
     (I8, 96, "binned_deep", False, 2, "core"),
-    (I8, 96, "binned", True, 1, "core"),
-    (I8, 96, "exact", True, 0, "core"),
+    (I8, 96, "binned", True, 11, "hopper_binned"),
+    (I8, 96, "exact", True, 10, "hopper_exact"),
+    (I8, 96, "binned", False, 1, "core"),
+    (I8, 96, "exact", False, 0, "core"),
     (I8, 96, "fold", True, 3, "core"),
     (I4, 96, "binned_deep", True, 6, "hopper"),
     (BITS, 96, "binned_deep", True, 6, "hopper"),
@@ -129,8 +133,9 @@ def test_launch_passes_the_body_extract_code(monkeypatch, kind, rot, extract,
     assert args[16] == rot if kind != BITS else args[16] == 32 * 3
     assert out_d.shape[:2] == out_i.shape[:2] == tuple(w["bucket_q"].shape)
     assert ivf_scan.ivf_list_scan_topk.launches == 1
-    assert ivf_scan.ivf_list_scan_topk.by_body == {
-        "core": int(body == "core"), "hopper": int(body == "hopper")}
+    want = {"core": 0, "hopper": 0}
+    want[body] = 1
+    assert ivf_scan.ivf_list_scan_topk.by_body == want
 
 
 @pytest.mark.parametrize("kind", [I8, I4, BITS])

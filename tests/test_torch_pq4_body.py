@@ -260,6 +260,8 @@ def _assert_tolerance(got, want_atol, join, hidden):
     ("core", "exact", False, False),
     ("core", "binned", False, False),
     ("hopper", "binned_deep", True, False),
+    ("hopper_exact", "exact", True, False),
+    ("hopper_binned", "binned", True, True),
     ("pq4_hopper", "exact", True, False),
     ("pq4_hopper", "binned", True, True),
     ("pq4_hopper", "binned_deep", True, True)])
@@ -271,6 +273,8 @@ def test_scan_tolerance_by_body(body, extract, join, hidden):
 
     args, kw = _tolerance_case(extract)
     want = {"core": lambda a, k: ATOL, "hopper": chip_smoke.deep_atol,
+            "hopper_exact": chip_smoke.deep_atol,
+            "hopper_binned": chip_smoke.deep_atol,
             "pq4_hopper": pq4_atol}[body](args, kw)
     _assert_tolerance(chip_smoke.scan_tolerance(body, args, kw), want, join,
                       hidden)
