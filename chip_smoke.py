@@ -39,7 +39,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              to 256, caps 256 to 640, L2, inner product and cosine, G off
              a multiple of 64), bit for bit on small integers; the exact
              and binned arms through the Hopper arms' body likewise (k 1
-             to 64; a cap of 390 left to the core); the pq4
+             to 64; a cap of 390 left to the core), over IVF-Flat's f32
+             and bf16 rows too (d 16 to 128, L2, inner product and
+             cosine, small integers and f32 rows whose rounding to bf16
+             meets exact ties; f32 operands and d 136 left to the core);
+             the pq4
              arm through its Hopper body (exact, binned, binned_deep; k 1
              to 64, p 24 to 96 at pq_len 1 and 2, L2 and inner product,
              caps 256 to 640 and 390, a padding bucket), bit for bit on
@@ -165,15 +169,19 @@ Kernel 1's Hopper fold body likewise: bit for bit on small integers,
 else within ``fold_atol`` (1.25 d 2^-24 of ||q|| times the largest row
 norm, twice that for L2) on sorted or merged rows, a lane's near-tied
 rival hidden.
-The exact and binned arms over the same rows (the Hopper arms' body) are
-held the same way, the binned arm also hiding a bin's near-tied rival.
+The exact and binned arms over the same rows, and over f32 and bf16 rows
+with plain queries (the f32 rows rounded to bf16 as the plain version
+rounds them), take the Hopper arms' body and are held the same way, the
+binned arm also hiding a bin's near-tied rival.
 The CAGRA self-search, the refined IVF-PQ first stage and RaBitQ's first
 stage must take the binned_deep body; the DEEP-10M int8 exact (k 10 and
 the refined search's 30) and default searches, the i4 and raw i4 rungs'
 exact and default searches and RaBitQ's exact search the Hopper arms'
 body; and every launch of the pq4 rung's exact, default and refined
 default searches the pq4 Hopper body (launches by body printed), or the
-run fails after its report.
+run fails after its report; so must the IVF-Flat main path's exact and
+default searches take the Hopper arms' body, and its fold under the table
+the core's.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -571,14 +579,15 @@ def phase_small_parity(dev) -> None:
             (ivf_scan.IP, None, None, None, 64, F32, BF16),
             (ivf_scan.L2, qn, norms, keep, 10, BF16, BF16)]:
         st = storage.to(dt)
-        kd, ki = ivf_scan.ivf_list_scan_topk(st, ids, sizes, bl, bq,
-                                             q.to(qt), qa, xn, kp, k=k,
-                                             metric_kind=mk)
-        pd, pi = ivf_scan.ivf_list_scan_topk_plain(st, ids, sizes, bl, bq,
-                                                   q.to(qt), qa, xn, kp,
-                                                   k=k, metric_kind=mk)
+        sargs = (st, ids, sizes, bl, bq, q.to(qt), qa, xn, kp)
+        kd, ki, body = scan_with_body(*sargs, k=k, metric_kind=mk)
+        pd, pi = ivf_scan.ivf_list_scan_topk_plain(*sargs, k=k,
+                                                   metric_kind=mk)
+        # bf16 x bf16 at d 96, k 10 takes the Hopper arms' body
         compare(f"ivf_list_scan_topk k={k} metric={mk} {str(qt)[6:]} x "
-                f"{str(dt)[6:]} keep={kp is not None}", kd, ki, pd, pi)
+                f"{str(dt)[6:]} keep={kp is not None} ({body} body)", kd,
+                ki, pd, pi, **scan_tolerance(body, sargs,
+                                             {"metric_kind": mk}))
     # IVF-Flat's float16 and uint8 rows, scanned as stored
     for dt in (torch.float16, torch.uint8):
         st = (storage.to(dt) if dt == torch.float16 else
@@ -913,8 +922,8 @@ def phase_small_parity_binned(dev) -> None:
 def small_integers(g, dev, args, kw):
     """The case with every dot exact in any summation order: queries,
     centers, norms and qaux small integers, scales 1, row scales powers of
-    two, int8 rows in [-20, 20], a pq4 codebook in [-3, 3] (i4 and sign
-    words are small already)."""
+    two, int8, f32 and bf16 rows in [-20, 20], a pq4 codebook in [-3, 3]
+    (i4 and sign words are small already)."""
     def ints(t, lo, hi):
         return torch.randint(lo, hi + 1, t.shape, generator=g,
                              device=dev).to(t.dtype)
@@ -925,7 +934,7 @@ def small_integers(g, dev, args, kw):
     for i in (6, 7):
         if args[i] is not None:
             args[i] = ints(args[i], 0, 200)
-    if args[0].dtype == torch.int8:
+    if args[0].dtype in (torch.int8, F32, BF16):
         args[0] = ints(args[0], -20, 20)
     if kw.get("centers") is not None:
         kw["centers"] = ints(kw["centers"], -3, 3) * (kw["centers"] != 0)
@@ -1022,12 +1031,18 @@ def phase_small_parity_arms(dev, g) -> None:
     128, k 1 to 64, caps 256, 384 and 640, with binned_case's duplicate
     rows, an empty list, one of 5 rows (shorter than k), sizes off a
     multiple of 128, the keep filter, empty query slots and G off a
-    multiple of 64. Every launch must take the body ``scan_body`` names:
-    the arms' body, except an exact case at cap 390 (not a multiple of
-    128), which the route leaves to the core. The dots sum in another
+    multiple of 64; then IVF-Flat's f32 and bf16 rows with plain queries
+    (d 16 to 128, k 1 to 64, L2, inner product and cosine, the same lists,
+    slots and filter), on small integers and on f32 rows whose rounding to
+    bf16 meets exact ties and values just off them. Every launch must take
+    the body ``scan_body`` names: the arms' body, except an exact case at
+    cap 390 (not a multiple of 128), one under f32 operands and one at d
+    136, which the route leaves to the core. The dots sum in another
     order than the plain version's, so random cases hold ``compare`` at
-    ``scan_tolerance``, and small-integer cases, where every dot is exact
-    in any order, must agree bit for bit."""
+    ``scan_tolerance`` (for the float kinds too: ``deep_atol`` under L2,
+    ATOL else, with the join rule; binned also ``hidden``), and
+    small-integer cases, where every dot is exact in any order, must agree
+    bit for bit."""
     from raft_tpu_torch.ops import ivf_scan
 
     log("parity (small, ragged): ivf_list_scan_topk exact and binned, "
@@ -1068,13 +1083,38 @@ def phase_small_parity_arms(dev, g) -> None:
             ("binned", "i4", 384, 96, 13, L2, False, 200, True),
             ("binned", "i4", 640, 40, 30, IP, True, 130, True),
             ("binned", "bits", 640, 128, 40, L2, True, 256, True),
-            ("binned", "bits", 256, 100, 1, IP, False, 100, True)]:
+            ("binned", "bits", 256, 100, 1, IP, False, 100, True),
+            # IVF-Flat's f32 and bf16 rows (plain queries)
+            ("exact", "f32", 256, 128, 10, L2, True, 256, False),
+            ("exact", "f32", 384, 96, 30, IP, False, 100, False),
+            ("exact", "f32", 640, 16, 64, L2, True, 200, False),
+            ("exact", "f32 cosine", 384, 128, 30, COS, True, 130, False),
+            ("exact", "bf16", 384, 128, 10, L2, True, 256, False),
+            ("exact", "bf16", 256, 64, 1, IP, False, 100, False),
+            ("binned", "f32", 256, 128, 10, L2, True, 256, False),
+            ("binned", "f32", 640, 96, 64, IP, False, 200, False),
+            ("binned", "f32 cosine", 384, 128, 10, COS, False, 130, False),
+            ("binned", "bf16", 384, 128, 13, L2, True, 100, False),
+            ("binned", "bf16", 256, 32, 40, IP, True, 256, False),
+            ("exact", "f32 nonfinite", 384, 128, 10, L2, True, 200, False),
+            ("binned", "f32 nonfinite", 256, 96, 13, L2, True, 130, False),
+            ("exact", "f32", 384, 128, 10, L2, True, 200, True),
+            ("exact", "bf16", 640, 96, 64, IP, False, 100, True),
+            ("exact", "f32 rounding", 384, 128, 30, L2, True, 256, True),
+            ("binned", "f32", 256, 128, 10, L2, True, 256, True),
+            ("binned", "bf16", 640, 16, 1, L2, False, 130, True),
+            ("binned", "f32 rounding", 640, 128, 64, IP, False, 200, True),
+            # left to the core: f32 operands; d past 128
+            ("exact", "f32 f32-operands", 256, 128, 10, L2, True, 256,
+             False),
+            ("exact", "f32", 256, 136, 10, L2, True, 256, False)]:
         kind = arm.split()[0]
+        cd = "f32" if arm.endswith("f32-operands") else "bf16"
         args, kw = scan_case(g, dev, kind, cap, rot, 0, 0, k,
-                             IP if mk == COS else mk, filt, "bf16", G=G)
+                             IP if mk == COS else mk, filt, cd, G=G)
         if arm == "i8 scalar":
             kw["scale"] = 0.0371
-        if arm == "i8 cosine":
+        if arm.endswith("cosine"):
             q = args[5]
             args = args[:6] + (torch.sqrt((q * q).sum(1)),
                                torch.rand(args[0].shape[:2], generator=g,
@@ -1082,16 +1122,38 @@ def phase_small_parity_arms(dev, g) -> None:
             kw["metric_kind"] = COS
         if small:
             args, kw = small_integers(g, dev, args, kw)
+        if arm == "f32 nonfinite":
+            # filtered rows of NaN, list tails of +inf: each must stay
+            # (+inf, -1) whatever its dot
+            st, sizes, kp = args[0].clone(), args[2], args[8]
+            st[kp == 0] = float("nan")
+            tail = torch.arange(cap, device=dev)[None, :] >= \
+                sizes.long()[:, None]
+            st[tail] = float("inf")
+            args = (st,) + args[1:]
+        if arm == "f32 rounding":
+            # f32 rows whose rounding to bf16 meets exact ties (odd
+            # sixteenths in [16, 20], to even) and values just off them
+            # (+-2^-9 where |x| >= 8): the rounded rows are multiples of
+            # 1/16, so every dot stays exact in any order
+            shape = args[0].shape
+            x = torch.randint(-320, 321, shape, generator=g,
+                              device=dev).float() / 16
+            nudge = torch.randint(-1, 2, shape, generator=g,
+                                  device=dev).float() * 2.0 ** -9
+            args = (x + torch.where(x.abs() >= 8, nudge,
+                                    torch.zeros_like(x)),) + args[1:]
         kw["extract"] = ex
         width = args[5].shape[1]
         want = ivf_scan.scan_body(ivf_scan.storage_kind(
             args[0], kw.get("packed_i4", False), kw.get("packed_bits",
                                                         False)),
-            True, width, k, ex, cap)
+            cd == "bf16", width, k, ex, cap)
         name = (f"ivf_list_scan_topk {ex} ({want} body) {arm} cap={cap} "
                 f"rot={rot} k={k} metric={mk} keep={filt} G={G}"
                 + (" small integers" if small else ""))
-        if want != ("core" if cap % 128 else f"hopper_{ex}"):
+        if want != ("core" if cap % 128 or cd == "f32" or rot > 128
+                    else f"hopper_{ex}"):
             raise SmokeFailure(f"{name}: scan_body routed it to {want}")
         before = by_body.get(want, 0)
         kd, ki = ivf_scan.ivf_list_scan_topk(*args, **kw)
@@ -1685,6 +1747,7 @@ def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
             return _orig(*a, **kw)
 
         rec.launches = 0
+        rec.by_body = {}
         orig.launches = 0
         wrapped[name] = (mod, orig, rec)
         setattr(mod, name, rec)
@@ -1701,6 +1764,8 @@ def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
         torch.cuda.synchronize()
         launches = {name: orig.launches + rec.launches
                     for name, (_, orig, rec) in wrapped.items()}
+        # kernel 2's launches by body (ivf_list_scan_topk.by_body's keys)
+        scan_bodies = dict(wrapped["ivf_list_scan_topk"][2].by_body)
     finally:
         for name, (mod, orig, _) in wrapped.items():
             setattr(mod, name, orig)
@@ -1721,6 +1786,7 @@ def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
         log(f"  {name}: {cnt} launch(es) during the main path")
         if cnt <= 0:
             raise SmokeFailure(f"{name} never launched on the main path")
+    log(f"  ivf_list_scan_topk launches by body: {scan_bodies}")
 
     # QPS: median of 5 timed 10k-query batches after a warm-up
     ivf_flat.search(sp, index, q, k)
@@ -1738,7 +1804,7 @@ def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
     profile_search(lambda: ivf_flat.search(sp, index, q, k))
     return {"captured": captured, "launches": launches, "build_s": build_s,
             "x": x, "q": q, "truth": truth, "index": index,
-            "recall": rec, "qps": nq / med}
+            "recall": rec, "qps": nq / med, "scan_bodies": scan_bodies}
 
 
 def profile_search(search) -> None:
@@ -3175,15 +3241,20 @@ def default_flat(index, q, truth, exact_recall, n_probes=64, k=10) -> dict:
                           k, exact_recall, floor=RECALL_FLOOR)
 
 
-def arms_body_failures(dres, rres) -> list:
-    """The exact and binned launches of the DEEP-10M int8 searches (exact
-    at k 10 and the refined search's 30, the default binned at 10), of
-    the i4 and raw i4 rungs (exact, default binned) and RaBitQ's exact
-    search (k 40) must take the Hopper arms' body
-    (``ops/ivf_scan.scan_body``): each search's launches by arm and by
-    body printed, a failure listed for each that did not."""
+def arms_body_failures(dres, rres, res, fres) -> list:
+    """The exact and binned launches of the IVF-Flat main path's exact
+    search (``res``, k 10) and default search (``fres``, binned at k 10),
+    of the DEEP-10M int8 searches (exact at k 10 and the refined search's
+    30, the default binned at 10), of the i4 and raw i4 rungs (exact,
+    default binned) and RaBitQ's exact search (k 40) must take the Hopper
+    arms' body (``ops/ivf_scan.scan_body``): each search's launches by arm
+    and by body printed, a failure listed for each that did not."""
     failed = []
     for label, arms, bodies, arm in [
+            ("IVF-Flat exact search (k 10)",
+             {"exact": res["launches"]["ivf_list_scan_topk"]},
+             res["scan_bodies"], "exact"),
+            (fres["label"], fres["launches"], fres["by_body"], "binned"),
             ("IVF-PQ int8 exact search (k 10)", dres["by_arm"],
              dres["by_body"], "exact"),
             ("IVF-PQ int8 refined search's exact first stage (k 30)",
@@ -3321,7 +3392,13 @@ def main() -> int:
                 bodies.get("hopper", 0) != arms["binned_deep"]:
             failed.append(f"{label}: its binned_deep launches did not all "
                           f"take the Hopper body ({bodies})")
-    failed += arms_body_failures(dres, rres)
+    failed += arms_body_failures(dres, rres, res, fres)
+    # the fold under its table keeps the core's body (IVF-Flat's f32 rows)
+    log(f"fold body, {flat_fold['label']}: launches by body "
+        f"{flat_fold['by_body']}")
+    if any(c for b, c in flat_fold["by_body"].items() if b != "core"):
+        failed.append(f"{flat_fold['label']}: a fold launch left the core "
+                      f"({flat_fold['by_body']})")
     # every bf16 pq4 launch of the pq4 rung's path must take the pq4
     # Hopper body (ops/ivf_scan.pq4_body): the exact search, the default
     # (binned at k) and the refined default (binned_deep at 3k)

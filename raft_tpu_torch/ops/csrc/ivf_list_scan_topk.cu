@@ -81,9 +81,10 @@
 // fits (ops/ivf_scan.py:pq4_body); f32 operands, the fold arms and wider
 // tables keep ivf_pq4_scan_topk_kernel below.
 //
-// The exact and binned arms over int8, i4 and sign-bit rows have a second
-// body too, on the binned_deep Hopper body (ivf_scan_arms.cuh, extract
-// codes 10 and 11): bf16 operands, d <= 128 (the int8 kind's a multiple of
+// The exact and binned arms over int8, i4 and sign-bit rows, and over f32
+// and bf16 rows with plain queries, have a second body too, on the
+// binned_deep Hopper body (ivf_scan_arms.cuh, extract codes 10 and 11):
+// bf16 operands, d <= 128 (the int8, f32 and bf16 kinds' a multiple of
 // 16), k <= 64 and a cap that is a multiple of 128 take it where the
 // caller routes them (ops/ivf_scan.py:scan_body); the other modes keep
 // this file's.
@@ -558,7 +559,8 @@ static int launch_pq4(const uint32_t* storage, const int* indices,
 // and binned_deep through the pq4 Hopper body (kind 5, round_ops, L2 or
 // inner product, its block within a block's shared memory; storage, norms
 // and keep 16-byte aligned); 10 and 11 exact and binned through the
-// Hopper arms' body (kinds 2-4 as code 6, k <= 64, cap a multiple of 128);
+// Hopper arms' body (kinds 2-4 as code 6, and kinds 0 and 1 with plain
+// queries and d a multiple of 16 <= 128; k <= 64, cap a multiple of 128);
 // out_d / out_i [nb, G, k], or [nb, G, 128 R] for fold. Returns a
 // cudaError_t code.
 extern "C" int ivf_list_scan_topk(

@@ -1,14 +1,14 @@
-// Kernel 2's exact and binned arms over int8, i4 and sign-bit rows,
-// redesigned for Hopper on the binned_deep Hopper body (ivf_scan_deep.cuh;
-// extract codes kExactHopper and kBinnedHopper, below;
+// Kernel 2's exact and binned arms over int8, i4, sign-bit, f32 and bf16
+// rows, redesigned for Hopper on the binned_deep Hopper body
+// (ivf_scan_deep.cuh; extract codes kExactHopper and kBinnedHopper, below;
 // ops/ivf_scan.py:scan_body routes to them).
 //
 // Replaces, for the launches it covers, the shared core's exact and binned
 // instantiations of ivf_list_scan_topk_kernel (scan_topk.cuh), which stay
 // as they are for every other mode. It computes what the TPU kernel
-// computes: raft_tpu/ops/ivf_scan.py:_scan_kernel (:198) over int8 rows
-// (:302-308), packed_i4 (:281) or packed_bits with the row scale (:256,
-// :310), then
+// computes: raft_tpu/ops/ivf_scan.py:_scan_kernel (:198) over f32 or bf16
+// rows and the int8 rows its float branch widens (:302-308), packed_i4
+// (:281) or packed_bits with the row scale (:256, :310), then
 // * the exact arm, _extract_topk (:70): each query's k smallest
 //   distances, ties to the lowest position;
 // * the binned arm, _extract_topk_binned (:89): one slot a bin of 128 (a
@@ -20,8 +20,14 @@
 //
 // Covers what the binned_deep body covers (int8 rows with d a multiple of
 // 16, i4 and sign words, d <= 128; residual, scaled, per-list-scaled or
-// plain queries; L2, inner product, cosine; bf16 operands only), at k <=
-// 64 and caps that are a multiple of 128 (128-row tiles read whole).
+// plain queries; L2, inner product, cosine; bf16 operands only), and f32
+// and bf16 rows with d a multiple of 16 <= 128 and plain queries (the
+// IVF-Flat scan), at k <= 64 and caps that are a multiple of 128 (128-row
+// tiles read whole). Under bf16 operands every product of a bf16 query
+// and a bf16 row value (an f32 row rounded to nearest even as its B
+// fragment is built, as round_bf16 rounds it) is exact in f32, so, as for
+// the integer rows, only the order of the f32 sums differs from the plain
+// version.
 //
 // What held the shared core's arms back (PERF.md): it staged every query
 // again for each 64-row tile, summed the dots on the CUDA cores, and
@@ -61,16 +67,34 @@
 //   32 (a register a lane) takes its candidates one at a time
 //   (merge_list), a list of k > 32 (two, which double each insertion's
 //   shuffles) sorts 16 or more in with it (warp_sort), as the first tiles
-//   bring (PERF.md).
+//   bring (PERF.md). Over f32 and bf16 rows a query's first tile, whose
+//   valid rows are all candidates, is sorted alone (sort_query without
+//   the list) instead.
+// * Float rows are laid out in a ring stage for the B fragments' loads
+//   (b_frag: a warp reads 8 rows' 16 dims side by side). A 128-row f32
+//   tile is 64 KB at d 128, so a block of 64 queries holds an SM alone
+//   and its 8 warps wait on the loads; a block of 128 queries (Q, 16
+//   warps) hides them and halves the L2 traffic (PERF.md). The binned
+//   arm takes the f32 rows as stored through the cp.async ring at Q 128;
+//   the exact arm's buffer does not fit beside two f32 stages there, so
+//   its threads load each f32 tile into registers while the warps work on
+//   the tile before and store it rounded to bf16 (STAGED), where bf16
+//   rows land as stored. arm_queries picks Q 128 for f32 rows and for the
+//   bf16 rows' exact arm where the block fits (the exact arm to k 47),
+//   else 64.
 //
-// Shared memory (smem_bytes): the prepared queries (4 m-tiles x 16 B x
-// 32 lanes a k-step: 16 KB at d 128), two ring stages (ivf_scan_deep.cuh),
-// then the exact arm's buffer (64 queries x 128 rows of an f32 distance
-// and a row byte, 64 counts and thresholds: 41,472 B) and lists (64
-// queries x k (f32, int32): 512 k B); the binned arm's 64 x 128 slots of 6 B
-// reuse the front after the scan. At int8 d 128 with norms and keep:
-// 98,304 B (exact, k 10), 125,952 B (exact, k 64) and 51,712 B (binned),
-// the 512 B of query ids and qaux included.
+// Shared memory (smem_bytes) at Q queries: the prepared queries (Q / 16
+// m-tiles x 16 B x 32 lanes a k-step: 16 KB at d 128 and Q 64), two ring
+// stages (ivf_scan_deep.cuh), then the exact arm's buffer (Q queries x
+// 128 rows of an f32 distance and a row byte, Q counts and thresholds:
+// 41,472 B at Q 64) and lists (Q queries x k (f32, int32)); the binned
+// arm's Q x 128 slots of 6 B reuse the front after the scan. At d 128
+// with norms and keep, the 8 Q B of query ids and qaux included: int8
+// rows (Q 64) 98,304 B (exact, k 10), 125,952 B (exact, k 64) and 51,712
+// B (binned); f32 rows 194,560 B (exact, k 10, Q 128 staged), 224,256 B
+// (exact, k 64, Q 64) and 166,912 B (binned, Q 128); bf16 rows 194,560
+// B (exact, k 10, Q 128), 158,720 B (exact, k 64, Q 64) and 84,480 B
+// (binned, Q 64).
 //
 // Bound (PERF.md): operations, 2 d per valid (query, row) pair on the bf16
 // tensor cores; the list bytes are far below it.
@@ -89,7 +113,8 @@ namespace arms {
 
 constexpr int kExactHopper = 10;    // the C entry's extract codes
 constexpr int kBinnedHopper = 11;
-constexpr int AQ = deep::DQ;        // queries a block (64)
+constexpr int AQ = deep::DQ;        // queries a block (64; 128 for float
+                                    // rows where that fits, arm_queries)
 constexpr int AT = deep::DT;        // rows a tile (128)
 constexpr int NQG = AQ / 32;        // query groups of 32 (a warp's 2 m-tiles)
 constexpr int NCG = 4;              // column groups of 32 rows
@@ -104,24 +129,46 @@ __host__ __device__ inline bool is_code(int extract) {
   return extract == kExactHopper || extract == kBinnedHopper;
 }
 
-// bytes of the prepared queries: AQ / 16 m-tiles x ks k-steps x 32 lanes
-// x 16 B
-__host__ __device__ inline int prep_bytes(int ks) {
-  return AQ / 16 * ks * 32 * 16;
+// bytes of the prepared queries of q queries: q / 16 m-tiles x ks
+// k-steps x 32 lanes x 16 B
+__host__ __device__ inline int prep_bytes(int ks, int q) {
+  return q / 16 * ks * 32 * 16;
 }
 
-// dynamic shared memory of a launch: the prepared queries, the ring, then
-// the exact arm's buffer and lists of k, or room for the binned arm's
-// slots at the front
+// the row kind a ring stage holds: f32 rows of the exact arm at 128
+// queries are converted to bf16 by the threads that load them (two f32
+// stages would not fit beside that block's buffer)
+__host__ __device__ constexpr int stage_rows(int rows, bool exact, int q) {
+  return rows == deep::kRowsF32 && exact && q > AQ ? deep::kRowsBf16 : rows;
+}
+
+// dynamic shared memory of a launch of q queries a block: the prepared
+// queries, the ring, then the exact arm's buffer and lists of k, or room
+// for the binned arm's slots at the front
 inline size_t smem_bytes(int rows, int d, int nw, int n_sides, int k,
-                         bool exact) {
+                         bool exact, int q) {
   const size_t scan =
-      (size_t)prep_bytes(deep::ksteps(rows, d, nw)) +
-      (size_t)deep::DNS * deep::stage_bytes(rows, d, nw, n_sides);
+      (size_t)prep_bytes(deep::ksteps(rows, d, nw), q) +
+      (size_t)deep::DNS *
+          deep::stage_bytes(stage_rows(rows, exact, q), d, nw, n_sides);
   if (exact)
-    return scan + (size_t)AQ * AT * 5 + (size_t)AQ * 8 + (size_t)AQ * k * 8;
-  const size_t slots = (size_t)AQ * AT * 6;
+    return scan + (size_t)q * AT * 5 + (size_t)q * 8 + (size_t)q * k * 8;
+  const size_t slots = (size_t)q * AT * 6;
   return scan > slots ? scan : slots;
+}
+
+// queries a block of a launch: 128 for f32 rows (two blocks of 64 could
+// not share an SM) and for the bf16 rows' exact arm, where that block
+// fits a block's shared memory (k <= 47 at the exact arm), else 64
+inline int arm_queries(int rows, int d, int nw, int n_sides, int k,
+                       bool exact) {
+  if (!deep::is_float_rows(rows) || (rows == deep::kRowsBf16 && !exact))
+    return AQ;
+  return smem_bytes(rows, d, nw, n_sides, k, exact, 2 * AQ) +
+                     2 * STATIC_BYTES <=
+                 (size_t)deep::SMEM_LIMIT
+             ? 2 * AQ
+             : AQ;
 }
 
 // (a, pa) comes before (b, pb): by distance, then position
@@ -240,12 +287,15 @@ __device__ __forceinline__ void warp_sort(float* v, int* p, int lane) {
 // One warp merges block query qq's n buffered candidates (k + n <= 32 S)
 // into its top-k list by sorting both together (warp_sort; padding (+inf,
 // -1)), and returns the list's k-th distance; arguments as merge_query's.
-template <int S>
+// Without LIST the list is empty (+inf, -1), as before a query's first
+// tile, and the candidates alone are sorted (n <= 32 S).
+template <int S, bool LIST = true>
 __device__ __forceinline__ float sort_query(float* sld, int* slp,
                                             const float* cbd,
                                             const unsigned char* cbr,
                                             int qq, int n, int r0, int k,
                                             int lane) {
+  const int kl = LIST ? k : 0;   // list entries sorted in
   float v[S];
   int p[S];
 #pragma unroll
@@ -253,12 +303,12 @@ __device__ __forceinline__ float sort_query(float* sld, int* slp,
     const int i = S * lane + j;
     v[j] = INFINITY;
     p[j] = -1;
-    if (i < k) {
+    if (i < kl) {
       v[j] = sld[qq * k + i];
       p[j] = slp[qq * k + i];
-    } else if (i - k < n) {
-      v[j] = cbd[qq * AT + i - k];
-      p[j] = r0 + cbr[qq * AT + i - k];
+    } else if (i - kl < n) {
+      v[j] = cbd[qq * AT + i - kl];
+      p[j] = r0 + cbr[qq * AT + i - kl];
     }
   }
   warp_sort<S>(v, p, lane);
@@ -311,11 +361,12 @@ __device__ __forceinline__ float merge_query(float* sld, int* slp,
   return kd;
 }
 
-// One block per (bucket, AQ-query sub-tile), as the shared core's kernel;
+// One block per (bucket, Q-query sub-tile), as the shared core's kernel;
 // arguments as ivf_deep_scan_kernel's (rows of kind ROWS; d <= 128; L2
-// when metric is L2); EXTRACT kExact or kBinned.
-template <int ROWS, bool L2, int EXTRACT>
-__global__ void __launch_bounds__(ATH, 2)
+// when metric is L2); EXTRACT kExact or kBinned. Q = 64 (two blocks an
+// SM where their shared memory fits) or 128 (float rows, one block).
+template <int ROWS, bool L2, int EXTRACT, int Q>
+__global__ void __launch_bounds__(4 * Q, Q == AQ ? 2 : 1)
 ivf_arm_scan_kernel(const void* __restrict__ storage,
                     const int* __restrict__ indices,
                     const int* __restrict__ list_sizes,
@@ -330,7 +381,14 @@ ivf_arm_scan_kernel(const void* __restrict__ storage,
                     const float* __restrict__ row_scale, int cap, int d,
                     int nw, int G, int k, int n_sub, int metric,
                     float* __restrict__ out_d, int* __restrict__ out_i) {
+  // the block's shape at Q queries (the namespace's at 64)
+  constexpr int AQ = Q, NQG = Q / 32, AW = NQG * NCG, ATH = 32 * AW;
   constexpr bool EXACT = EXTRACT == kExact;
+  // exact over float rows: a query's first tile sorted, not inserted
+  constexpr bool FIRST_SORT = deep::is_float_rows(ROWS);
+  // the ring's row kind: f32 rows converted to bf16 as they are stored
+  constexpr bool STAGED = stage_rows(ROWS, EXACT, Q) != ROWS;
+  constexpr int SROWS = stage_rows(ROWS, EXACT, Q);
   constexpr int MT = 2;                // m-tiles of 16 queries a warp
   constexpr int CW = AT / NCG;         // rows a column group
   constexpr int NT = CW / 8;           // n-tiles a warp
@@ -420,15 +478,18 @@ ivf_arm_scan_kernel(const void* __restrict__ storage,
   const int nch = d / 16;
   const int n_sides = (norms != nullptr) + (keep != nullptr) +
                       (row_scale != nullptr);
-  const int sbytes = deep::stage_bytes(ROWS, d, nw, n_sides);
+  const int sbytes = deep::stage_bytes(SROWS, d, nw, n_sides);
   const int row_bytes = sbytes - n_sides * AT * 4;
   const int off_norms = row_bytes;
   const int off_keep = off_norms + (norms != nullptr) * AT * 4;
   const int off_rs = off_keep + (keep != nullptr) * AT * 4;
-  unsigned char* ring = dyn + prep_bytes(KS);
+  unsigned char* ring = dyn + prep_bytes(KS, AQ);
   const unsigned char* list_rows =
       static_cast<const unsigned char*>(storage) +
-      (ROWS == kRowsDense ? (size_t)l * cap * d : (size_t)l * nw * cap * 4);
+      (ROWS == kRowsDense        ? (size_t)l * cap * d
+       : ROWS == deep::kRowsF32  ? (size_t)l * cap * d * 4
+       : ROWS == deep::kRowsBf16 ? (size_t)l * cap * d * 2
+                                 : (size_t)l * nw * cap * 4);
 
   auto load_tile = [&](int t, unsigned char* st) {
     const int r0 = t * AT;
@@ -437,6 +498,22 @@ ivf_arm_scan_kernel(const void* __restrict__ storage,
         const int r = c / nch, cc = c - r * nch;
         deep::cp_async16(st + (((r >> 3) * 8 * nch + 8 * cc + (r & 7)) << 4),
                          list_rows + (size_t)(r0 + r) * d + 16 * cc);
+      }
+    } else if constexpr (STAGED) {
+      // the rows come through registers (fetch_rows, store_rows)
+    } else if constexpr (deep::is_float_rows(ROWS)) {
+      // 16-byte chunk c of the stage, in b_frag's order: (8-row group,
+      // k-step, row, unit); a warp copies 8 rows' 16 dims (f32: 64 B a
+      // row; bf16: 32) into 512 B side by side. F32 chunks are a lane's
+      // unit (t = c % 4), bf16 chunks two (t = 2 (c % 2), + 1)
+      constexpr int U = ROWS == deep::kRowsF32 ? 4 : 2;   // units a group
+      constexpr int EB = ROWS == deep::kRowsF32 ? 4 : 2;  // element bytes
+      for (int c = tid; c < AT * d * EB / 16; c += ATH) {
+        const int grp = c / (8 * U), s = grp % nch;
+        const int r = (grp / nch) * 8 + (c / U) % 8;
+        deep::cp_async16(st + 16 * c,
+                         list_rows + ((size_t)(r0 + r) * d + 16 * s +
+                                      (c % U) * (16 / EB)) * EB);
       }
     } else {
       for (int c = tid; c < nw * (AT / 4); c += ATH) {
@@ -451,6 +528,31 @@ ivf_arm_scan_kernel(const void* __restrict__ storage,
       if (keep) deep::cp_async16(st + off_keep + 16 * tid, keep + o);
       if (row_scale) deep::cp_async16(st + off_rs + 16 * tid, row_scale + o);
     }
+  };
+
+  // STAGED: the tile's f32 rows in b_frag's bf16 units (4 dims, 8 B of
+  // the stage, 16 B of f32), unit u = tid + j ATH in register j of the
+  // thread (KS units a thread: 32 d units over 4 Q = 512 threads): a
+  // warp reads 8 rows' 64 B and writes 256 B side by side
+  auto fetch_rows = [&](int t, float4* v) {
+    const float* src =
+        reinterpret_cast<const float*>(list_rows) + (size_t)t * AT * d;
+#pragma unroll
+    for (int j = 0; j < deep::DKS; ++j)
+      if (j < KS) {
+        const int u = tid + j * ATH, grp = u >> 5;
+        const int r = (grp / nch) * 8 + ((u >> 2) & 7);
+        v[j] = __ldg(reinterpret_cast<const float4*>(
+            src + (size_t)r * d + 16 * (grp % nch) + 4 * (u & 3)));
+      }
+  };
+  auto store_rows = [&](const float4* v, unsigned char* st) {
+#pragma unroll
+    for (int j = 0; j < deep::DKS; ++j)
+      if (j < KS)
+        reinterpret_cast<uint2*>(st)[tid + j * ATH] =
+            make_uint2(deep::f32x2_to_bf16(v[j].x, v[j].y),
+                       deep::f32x2_to_bf16(v[j].z, v[j].w));
   };
 
   // exact: the buffer of candidates (distance, row in the tile) a query,
@@ -487,6 +589,13 @@ ivf_arm_scan_kernel(const void* __restrict__ storage,
 
   const int ntiles = (size + AT - 1) / AT;
   if (ntiles > 0) load_tile(0, ring);
+  if constexpr (STAGED) {
+    if (ntiles > 0) {
+      float4 v[deep::DKS];
+      fetch_rows(0, v);
+      store_rows(v, ring);
+    }
+  }
   deep::cp_async_commit();
 #if RTT_STAGES < 2
   float keep_live = INFINITY;
@@ -494,7 +603,12 @@ ivf_arm_scan_kernel(const void* __restrict__ storage,
   for (int t = 0; t < ntiles; ++t) {
     deep::cp_async_wait_all();
     __syncthreads();   // tile t landed; every warp is done with tile t - 1
-    if (t + 1 < ntiles) load_tile(t + 1, ring + ((t + 1) & 1) * sbytes);
+    // STAGED: the next tile's rows in flight to registers over the dots
+    float4 nxt[STAGED ? deep::DKS : 1];
+    if (t + 1 < ntiles) {
+      load_tile(t + 1, ring + ((t + 1) & 1) * sbytes);
+      if constexpr (STAGED) fetch_rows(t + 1, nxt);
+    }
     deep::cp_async_commit();
     const unsigned char* st = ring + (t & 1) * sbytes;
     const int r0 = t * AT;
@@ -525,7 +639,8 @@ ivf_arm_scan_kernel(const void* __restrict__ storage,
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           uint32_t b0, b1;
-          deep::b_frag<ROWS>(st, cbase + 8 * j + gid, s, t4, nch, nw, b0, b1);
+          deep::b_frag<SROWS>(st, cbase + 8 * j + gid, s, t4, nch, nw, b0,
+                              b1);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
             deep::mma_bf16(acc[mt][j], a[mt], b0, b1);
@@ -536,6 +651,9 @@ ivf_arm_scan_kernel(const void* __restrict__ storage,
     // keep the query fragments live without the dots
     acc[0][0][0] = __uint_as_float(prep[lane] & 0x7FFF7FFFu);
 #endif
+
+    if constexpr (STAGED)
+      if (t + 1 < ntiles) store_rows(nxt, ring + ((t + 1) & 1) * sbytes);
 
     // the thresholds of the lane's four queries (exact)
     float tq[MT][2];
@@ -575,10 +693,14 @@ ivf_arm_scan_kernel(const void* __restrict__ storage,
           float dot = acc[mt][j][c];
           if constexpr (ROWS == kRowsBits) dot = __fmul_rn(dot, rs[e]);
           float dv;
-          if constexpr (L2)
+          if constexpr (L2) {
             dv = fmaxf(__fmaf_rn(-2.f, dot, __fadd_rn(qa_l2[mt][h], xn[e])),
                        0.f);
-          else
+            // float rows may hold inf or NaN, whose dot would turn the
+            // +inf of a masked row or empty slot into 0 by fmaxf
+            if constexpr (deep::is_float_rows(ROWS))
+              dv = (ok[e] && qv[mt][h]) ? dv : INFINITY;
+          } else
             dv = (ok[e] && qv[mt][h])
                      ? epilogue_dist(dot, qa_r[mt][h], xn[e], plen[e], metric)
                      : INFINITY;
@@ -616,9 +738,12 @@ ivf_arm_scan_kernel(const void* __restrict__ storage,
         if (n == 0) continue;
         // candidates are inserted one at a time into a list of k <= 32
         // (a register a lane); a list of k > 32 (two) sorts many of them
-        // (the first tiles) in with it
+        // (the first tiles) in with it. Over float rows the first tile's
+        // candidates (every valid row, the list empty) are sorted alone
         const float kd =
-            k <= 32 ? merge_query<1>(sld, slp, cbd, cbr, qq, n, r0, k, lane)
+            FIRST_SORT && t == 0
+                ? sort_query<4, false>(sld, slp, cbd, cbr, qq, n, r0, k, lane)
+            : k <= 32 ? merge_query<1>(sld, slp, cbd, cbr, qq, n, r0, k, lane)
             : n < SORT_MIN
                 ? merge_query<KA / 32>(sld, slp, cbd, cbr, qq, n, r0, k, lane)
             : k + n <= 128
@@ -676,7 +801,7 @@ ivf_arm_scan_kernel(const void* __restrict__ storage,
 #endif
 }
 
-template <int ROWS, bool L2, int EXTRACT>
+template <int ROWS, bool L2, int EXTRACT, int Q>
 static int launch_as(const void* storage, const int* indices,
                      const int* list_sizes, const int* bucket_list,
                      const int* bucket_q, const float* queries,
@@ -685,29 +810,32 @@ static int launch_as(const void* storage, const int* indices,
                      const float* scale_vec, const float* row_scale, int cap,
                      int d, int nw, int nb, int G, int k, int metric,
                      float* out_d, int* out_i, cudaStream_t stream) {
-  const int n_sub = (G + AQ - 1) / AQ;
+  const int n_sub = (G + Q - 1) / Q;
   const int n_sides = (norms != nullptr) + (keep != nullptr) +
                       (row_scale != nullptr);
-  const size_t smem = smem_bytes(ROWS, d, nw, n_sides, k, EXTRACT == kExact);
-  if (smem + STATIC_BYTES > (size_t)deep::SMEM_LIMIT)
+  const size_t smem =
+      smem_bytes(ROWS, d, nw, n_sides, k, EXTRACT == kExact, Q);
+  if (smem + (size_t)Q * 8 > (size_t)deep::SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
-  auto kernel = ivf_arm_scan_kernel<ROWS, L2, EXTRACT>;
+  auto kernel = ivf_arm_scan_kernel<ROWS, L2, EXTRACT, Q>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
-  kernel<<<nb * n_sub, ATH, smem, stream>>>(
+  kernel<<<nb * n_sub, 4 * Q, smem, stream>>>(
       storage, indices, list_sizes, bucket_list, bucket_q, queries, qaux,
       norms, keep, centers, scale, scale_vec, row_scale, cap, d, nw, G, k,
       n_sub, metric, out_d, out_i);
   return (int)cudaGetLastError();
 }
 
-// storage kind 2 (int8 [C, cap, d]), 3 (i4) or 4 (sign bits) [C, nw, cap],
-// extract code `code` (kExactHopper or kBinnedHopper); the rest as the C
-// entry's (round_ops required; k <= KA). Returns a cudaError_t code.
+// storage kind 0 (f32) or 1 (bf16) [C, cap, d] with plain queries (no
+// centers or per-list scales, scale 1), 2 (int8 [C, cap, d]), 3 (i4) or 4
+// (sign bits) [C, nw, cap], extract code `code` (kExactHopper or
+// kBinnedHopper); the rest as the C entry's (round_ops required; k <= KA).
+// Returns a cudaError_t code.
 static int launch(int code, int storage_kind, const void* storage,
                   const int* indices, const int* list_sizes,
                   const int* bucket_list, const int* bucket_q,
@@ -717,34 +845,59 @@ static int launch(int code, int storage_kind, const void* storage,
                   int d, int nw, int nb, int G, int k, int metric,
                   int round_ops, float* out_d, int* out_i,
                   cudaStream_t stream) {
-  const int rows = storage_kind == 2 ? kRowsDense
-                                     : storage_kind == 3 ? kRowsI4 : kRowsBits;
-  if (storage_kind < 2 || storage_kind > 4 || !round_ops || d > 128 ||
-      k > KA || (rows == kRowsDense && d % 16 != 0) ||
+  const int rows = storage_kind == 0   ? deep::kRowsF32
+                   : storage_kind == 1 ? deep::kRowsBf16
+                   : storage_kind == 2 ? kRowsDense
+                   : storage_kind == 3 ? kRowsI4
+                                       : kRowsBits;
+  const bool dense = rows == kRowsDense || deep::is_float_rows(rows);
+  if (storage_kind < 0 || storage_kind > 4 || !round_ops || d > 128 ||
+      k > KA || (dense && d % 16 != 0) ||
       (rows != kRowsBits && row_scale != nullptr) ||
+      (deep::is_float_rows(rows) &&
+       (centers != nullptr || scale_vec != nullptr || scale != 1.f)) ||
       deep::ksteps(rows, d, nw) > deep::DKS)
     return (int)cudaErrorInvalidValue;
   if (!deep::aligned16(storage) || !deep::aligned16(norms) ||
       !deep::aligned16(keep) || !deep::aligned16(row_scale))
     return (int)cudaErrorMisalignedAddress;
-#define RTT_ARM(R, E)                                                         \
+  const bool exact = code != kBinnedHopper;
+  const int q = arm_queries(rows, d, nw,
+                            (norms != nullptr) + (keep != nullptr) +
+                                (row_scale != nullptr),
+                            k, exact);
+#define RTT_ARM_Q(R, E, Q)                                                    \
   (metric == kL2                                                              \
-       ? launch_as<R, true, E>(storage, indices, list_sizes, bucket_list,     \
-                               bucket_q, queries, qaux, norms, keep, centers, \
-                               scale, scale_vec, row_scale, cap, d, nw, nb,   \
-                               G, k, metric, out_d, out_i, stream)            \
-       : launch_as<R, false, E>(storage, indices, list_sizes, bucket_list,    \
-                                bucket_q, queries, qaux, norms, keep,         \
-                                centers, scale, scale_vec, row_scale, cap, d, \
-                                nw, nb, G, k, metric, out_d, out_i, stream))
+       ? launch_as<R, true, E, Q>(storage, indices, list_sizes, bucket_list,  \
+                                  bucket_q, queries, qaux, norms, keep,       \
+                                  centers, scale, scale_vec, row_scale, cap,  \
+                                  d, nw, nb, G, k, metric, out_d, out_i,      \
+                                  stream)                                     \
+       : launch_as<R, false, E, Q>(storage, indices, list_sizes, bucket_list, \
+                                   bucket_q, queries, qaux, norms, keep,      \
+                                   centers, scale, scale_vec, row_scale, cap, \
+                                   d, nw, nb, G, k, metric, out_d, out_i,     \
+                                   stream))
+#define RTT_ARM(R, E) RTT_ARM_Q(R, E, AQ)
 #define RTT_ARMS(E)                                                           \
   (rows == kRowsDense ? RTT_ARM(kRowsDense, E)                                \
                       : rows == kRowsI4 ? RTT_ARM(kRowsI4, E)                 \
                                         : RTT_ARM(kRowsBits, E))
-  if (code == kBinnedHopper) return RTT_ARMS(kBinned);
+  if (rows == deep::kRowsF32) {
+    if (!exact) return RTT_ARM_Q(deep::kRowsF32, kBinned, 2 * AQ);
+    return q > AQ ? RTT_ARM_Q(deep::kRowsF32, kExact, 2 * AQ)
+                  : RTT_ARM_Q(deep::kRowsF32, kExact, AQ);
+  }
+  if (rows == deep::kRowsBf16) {
+    if (!exact) return RTT_ARM_Q(deep::kRowsBf16, kBinned, AQ);
+    return q > AQ ? RTT_ARM_Q(deep::kRowsBf16, kExact, 2 * AQ)
+                  : RTT_ARM_Q(deep::kRowsBf16, kExact, AQ);
+  }
+  if (!exact) return RTT_ARMS(kBinned);
   return RTT_ARMS(kExact);
 #undef RTT_ARMS
 #undef RTT_ARM
+#undef RTT_ARM_Q
 }
 
 }  // namespace arms

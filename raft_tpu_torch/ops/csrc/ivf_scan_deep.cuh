@@ -93,12 +93,24 @@ constexpr int DKS = 8;                 // k-steps of 16 dims at most (d 128)
 constexpr int SMEM_LIMIT = 232448;     // a block's shared memory (H100)
 constexpr int SLOT_BYTES = DQ * DT * (16 + 8);
 constexpr int STATIC_BYTES = DQ * 8;   // qidx, qa
+// dense f32 and bf16 rows, which only the arms' body takes
+// (ivf_scan_arms.cuh): their tiles are laid out for b_frag's loads
+constexpr int kRowsF32 = 3;
+constexpr int kRowsBf16 = 4;
+
+__host__ __device__ constexpr bool is_float_rows(int rows) {
+  return rows == kRowsF32 || rows == kRowsBf16;
+}
 
 // bytes of one ring stage: the tile's rows, then 128 floats or ints for
 // each side array present (norms, keep, row scales)
 __host__ __device__ inline int stage_bytes(int rows, int d, int nw,
                                            int n_sides) {
-  return (rows == kRowsDense ? DT * d : DT * nw * 4) + n_sides * DT * 4;
+  return (rows == kRowsDense  ? DT * d
+          : rows == kRowsF32  ? DT * d * 4
+          : rows == kRowsBf16 ? DT * d * 2
+                              : DT * nw * 4) +
+         n_sides * DT * 4;
 }
 
 // dynamic shared memory of a launch (slots + ring)
@@ -108,18 +120,20 @@ inline size_t deep_smem_bytes(int rows, int d, int nw, int n_sides) {
 
 // k-steps of 16 dims a row kind needs for width d (nw words)
 __host__ __device__ inline int ksteps(int rows, int d, int nw) {
-  return rows == kRowsDense ? d / 16
-                            : rows == kRowsI4 ? 2 * ((nw + 3) / 4) : 2 * nw;
+  return rows == kRowsDense || is_float_rows(rows)
+             ? d / 16
+             : rows == kRowsI4 ? 2 * ((nw + 3) / 4) : 2 * nw;
 }
 
 // The dim that element e (0..3: k slots 2t, 2t + 1, 2t + 8, 2t + 9 of the
 // mma) of k-step s holds for the lane with t = threadID_in_group: int8
-// rows read 4 bytes at 16 s + 4 t; i4 rows word 4 (s / 2) + t, whose
-// nibbles n and n + 4 make one bf16 pair; sign words word s / 2, whose
-// bits i and i + 16 make one pair.
+// rows read 4 bytes at 16 s + 4 t (f32 and bf16 rows the 4 elements
+// there); i4 rows word 4 (s / 2) + t, whose nibbles n and n + 4 make one
+// bf16 pair; sign words word s / 2, whose bits i and i + 16 make one pair.
 template <int ROWS>
 __device__ __forceinline__ int deep_dim(int s, int t, int e) {
-  if constexpr (ROWS == kRowsDense) return 16 * s + 4 * t + e;
+  if constexpr (ROWS == kRowsDense || is_float_rows(ROWS))
+    return 16 * s + 4 * t + e;
   if constexpr (ROWS == kRowsI4)
     return 8 * (4 * (s >> 1) + t) + 2 * (s & 1) + (e >> 1) + 4 * (e & 1);
   return 32 * (s >> 1) + 16 * (e & 1) + 8 * (s & 1) + 2 * t + (e >> 1);
@@ -187,6 +201,13 @@ __device__ __forceinline__ uint32_t i4_pair(uint32_t x88, int n) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// two f32 values rounded to nearest even as one bf16 pair (lo in the low
+// half), as round_bf16 rounds each
+__device__ __forceinline__ uint32_t f32x2_to_bf16(float lo, float hi) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
 // bits i and i + 16 of a sign word as one bf16 pair (+1 set, -1 clear);
 // `inv` is the word inverted, so a clear bit sets the bf16 sign
 __device__ __forceinline__ uint32_t bits_pair(uint32_t inv, int i) {
@@ -196,7 +217,10 @@ __device__ __forceinline__ uint32_t bits_pair(uint32_t inv, int i) {
 // The B fragment (b0, b1) of k-step s for the lane's column row `row` of
 // the tile in ring stage `rows_s`. int8 rows: 16-byte chunk c of row r at
 // chunk (r / 8) 8 nch + 8 c + r % 8, so the 8 rows one load reads sit in
-// 8 consecutive chunks; words: word w of row r at w 128 + (r + 8 w) % 128.
+// 8 consecutive chunks; words: word w of row r at w 128 + (r + 8 w) % 128;
+// f32 (bf16) rows: the 4 elements 16 s + 4 t.. of row r, 16 (8) B, at
+// unit ((r / 8) nch + s) 32 + 4 (r % 8) + t, so a warp's load of 8 rows
+// reads 512 (256) B side by side, rounded to bf16 as it is read (f32).
 template <int ROWS>
 __device__ __forceinline__ void b_frag(const unsigned char* rows_s, int row,
                                        int s, int t, int nch, int nw,
@@ -205,6 +229,16 @@ __device__ __forceinline__ void b_frag(const unsigned char* rows_s, int row,
     const uint32_t w = *reinterpret_cast<const uint32_t*>(
         rows_s + (((row >> 3) * 8 * nch + 8 * s + (row & 7)) << 4) + 4 * t);
     i8x4_to_bf16(w, b0, b1);
+  } else if constexpr (ROWS == kRowsF32) {
+    const float4 v = reinterpret_cast<const float4*>(
+        rows_s)[((row >> 3) * nch + s) * 32 + 4 * (row & 7) + t];
+    b0 = f32x2_to_bf16(v.x, v.y);
+    b1 = f32x2_to_bf16(v.z, v.w);
+  } else if constexpr (ROWS == kRowsBf16) {
+    const uint2 v = reinterpret_cast<const uint2*>(
+        rows_s)[((row >> 3) * nch + s) * 32 + 4 * (row & 7) + t];
+    b0 = v.x;
+    b1 = v.y;
   } else if constexpr (ROWS == kRowsI4) {
     const int w = 4 * (s >> 1) + t;
     // words past the row's nw meet query dims past d, which are 0

@@ -93,15 +93,20 @@ int8, i4 and sign-bit rows with bf16 operands at d <= 128 take the Hopper
 body; the rest keep the core's. Both keep what the reference's arm keeps;
 the Hopper body sums each dot's f32 products in another order.
 
-The exact and binned arms over the same three row kinds have a Hopper
-body as well (``csrc/ivf_scan_arms.cuh``), on the binned_deep body's
-query preparation, ring and dots: binned keeps each (query, bin)'s best
+The exact and binned arms over the same three row kinds, and over f32
+and bf16 rows (the IVF-Flat scan), have a Hopper body as well
+(``csrc/ivf_scan_arms.cuh``), on the binned_deep body's query
+preparation, ring and dots: binned keeps each (query, bin)'s best
 distance and chunk in its owner's registers, exact buffers each query's
 candidates under its k-th distance of the tile before and merges them
 into top-k lists held by one warp. :func:`scan_body` routes by mode, k
 and cap: int8 (``rot`` a multiple of 16), i4 and sign-bit rows with bf16
-operands at ``rot`` <= 128 take it at k <= 64 on a cap that is a
-multiple of 128; the rest keep the core's.
+operands at ``rot`` <= 128, and f32 and bf16 rows with bf16 operands,
+plain queries and d a multiple of 16 <= 128, take it at k <= 64 on a cap
+that is a multiple of 128; the rest keep the core's. The f32 rows are
+rounded to bf16 as the tensor-core operands are built, so its dots, as
+the integer rows', differ from the plain version's only in the order of
+the f32 sums.
 
 The pq4 arm has two CUDA bodies as well: the core's pq4 kernel (f32
 tables in shared memory, one lookup and add per (query, row, subspace)),
@@ -162,12 +167,16 @@ _DEEP_SLOTS, _DEEP_STAGES, _DEEP_STATIC = 64 * 128 * 24, 2, 512
 PQ4_HOPPER = 7
 _PQ4_Q, _PQ4_T, _PQ4_STAGES, _PQ4_DIST_LD, _PQ4_STATIC = 32, 256, 2, 260, 256
 # the extract codes of the exact and binned arms through the Hopper arms'
-# body, the largest k it takes, and its exact arm's buffer: 64 queries x
-# 128 rows of an f32 distance and a row byte, 64 counts and thresholds
-# (its lists add 64 k (f32, int32)) (csrc/ivf_scan_arms.cuh)
+# body, the largest k it takes, and its exact arm's buffer a 64 queries
+# (blocks of 128 take twice): 64 queries x 128 rows of an f32 distance and
+# a row byte, 64 counts and thresholds (its lists add 64 k (f32, int32))
+# (csrc/ivf_scan_arms.cuh)
 HOPPER_EXACT, HOPPER_BINNED = 10, 11
 ARMS_K_MAX = 64
 _ARMS_BUFFER = 64 * 128 * 5 + 64 * 8
+# the dense float kinds the arms' body takes besides the binned_deep
+# body's (f32, bf16), and their bytes an element
+_FLOAT_ROWS = {0: 4, 1: 2}
 
 # the per-list recall budget the binned arm is judged against when the
 # caller does not say (the SearchParams default)
@@ -248,7 +257,7 @@ def binned_deep_body(kind: int, round_ops: bool, rot: int) -> str:
 
 
 def scan_body(kind: int, round_ops: bool, rot: int, k: int, extract: str,
-              cap: int) -> str:
+              cap: int, plain_queries: bool = True) -> str:
     """The body a launch over rows of storage ``kind`` at the kernel's
     width ``rot`` takes for ``k`` of a list capacity ``cap`` at
     ``extract``: where :func:`binned_deep_body` gives "hopper" (int8 rows
@@ -256,12 +265,21 @@ def scan_body(kind: int, round_ops: bool, rot: int, k: int, extract: str,
     <= 128), binned_deep takes "hopper" (``csrc/ivf_scan_deep.cuh``), and
     the exact and binned arms "hopper_exact" and "hopper_binned"
     (``csrc/ivf_scan_arms.cuh``) at k <= 64 on a cap that is a multiple
-    of 128; else "core" (the fold arms, larger k, other caps, other kinds
-    and f32 operands; the pq4 kind routes by :func:`pq4_body`)."""
-    if extract not in ("exact", "binned", "binned_deep") or \
-            binned_deep_body(kind, round_ops, rot) == "core":
+    of 128; so do the exact and binned arms over f32 and bf16 rows (kinds
+    0 and 1) with bf16 operands, ``plain_queries`` (no centers, scale 1)
+    and ``rot`` a multiple of 16 <= 128. Else "core" (the fold arms,
+    binned_deep over float rows, larger k, other caps, residual or scaled
+    queries over float rows, f16 and uint8 rows and f32 operands; the pq4
+    kind routes by :func:`pq4_body`)."""
+    if extract not in ("exact", "binned", "binned_deep"):
         return "core"
-    if extract == "binned_deep":
+    if kind in _FLOAT_ROWS:
+        if extract == "binned_deep" or not (round_ops and plain_queries) \
+                or rot % 16 or rot > 128:
+            return "core"
+    elif binned_deep_body(kind, round_ops, rot) == "core":
+        return "core"
+    elif extract == "binned_deep":
         return "hopper"
     if k > ARMS_K_MAX or cap % _BINS:
         return "core"
@@ -270,42 +288,75 @@ def scan_body(kind: int, round_ops: bool, rot: int, k: int, extract: str,
 
 def _ring_stage_bytes(kind: int, rot: int, n_sides: int) -> int:
     """One ring stage of the Hopper bodies over ``kind``'s rows: a 128-row
-    tile (int8 128 rot B, i4 64 rot, sign words 16 rot) and 512 B for each
-    side array."""
-    rows = 128 * (rot if kind == I8 else 4 * (rot // 8) if kind == I4
+    tile (int8 128 rot B, f32 512 rot, bf16 256 rot, i4 64 rot, sign words
+    16 rot) and 512 B for each side array."""
+    rows = 128 * (rot if kind == I8 else _FLOAT_ROWS[kind] * rot
+                  if kind in _FLOAT_ROWS else 4 * (rot // 8) if kind == I4
                   else 4 * -(-rot // 32))
     return rows + 512 * n_sides
 
 
-def _check_hopper_kind(kind: int, body: str) -> None:
-    if kind not in (I8, I4, BITS):
-        raise ValueError(f"the Hopper {body} body takes storage kinds {I8}, "
-                         f"{I4} and {BITS}, not {kind}")
+def _check_hopper_kind(kind: int, body: str, kinds=(I8, I4, BITS)) -> None:
+    if kind not in kinds:
+        raise ValueError(f"the Hopper {body} body takes storage kinds "
+                         f"{sorted(kinds)}, not {kind}")
+
+
+def _arms_block_bytes(kind: int, rot: int, k: int, exact: bool, q: int,
+                      n_sides: int) -> int:
+    """Shared memory of an arms' body block of ``q`` queries (dynamic and
+    static): the prepared queries (q / 16 x 512 B a 16-dim k-step), two
+    ring stages (f32 rows of the exact arm at 128 queries staged as bf16),
+    then the exact arm's buffer (``_ARMS_BUFFER`` a 64 queries) and q
+    lists of k (f32, int32), or for binned at least q x 128 slots of 6
+    B; and 8 B a query of ids and qaux."""
+    ksteps = (rot // 16 if kind == I8 or kind in _FLOAT_ROWS
+              else 2 * -(-(rot // 8) // 4) if kind == I4
+              else 2 * -(-rot // 32))
+    stage_kind = 1 if kind == 0 and exact and q > 64 else kind
+    scan = 32 * q * ksteps + _DEEP_STAGES * _ring_stage_bytes(
+        stage_kind, rot, n_sides)
+    return (scan + _ARMS_BUFFER * q // 64 + q * k * 8 if exact
+            else max(scan, q * 128 * 6)) + 8 * q
+
+
+def arms_queries(kind: int, rot: int, k: int, extract: str,
+                 norms: bool = True, keep: bool = True,
+                 row_scale: bool = False) -> int:
+    """Queries a block of the arms' body's launch (``arm_queries`` in
+    ``csrc/ivf_scan_arms.cuh``): 128 for f32 rows and for the bf16 rows'
+    exact arm where that block fits a block's shared memory (the exact
+    arm to k 47 with norms and keep), else 64."""
+    if kind not in _FLOAT_ROWS or (kind == 1 and extract != "exact"):
+        return 64
+    n_sides = int(norms) + int(keep) + int(row_scale)
+    fits = _arms_block_bytes(kind, rot, k, extract == "exact", 128,
+                             n_sides) <= SMEM_LIMIT
+    return 128 if fits else 64
 
 
 def arms_smem_bytes(kind: int, rot: int, k: int, extract: str,
                     norms: bool = True, keep: bool = True,
                     row_scale: bool = False) -> int:
     """Shared memory of one block of the Hopper arms' body (dynamic and
-    static) for rows of ``kind`` at width ``rot``, ``k`` and ``extract``
-    ("exact" or "binned") with the side arrays named: the prepared
-    queries (2 KB a 16-dim k-step), two ring stages, then the exact arm's
-    buffer (41,472 B) and 64 lists of k (f32, int32), or for binned at
-    least the 64 x 128 slots of 6 B that reuse the front after the scan;
-    and 512 B of query ids and qaux. Two blocks share an SM where twice
-    this fits its 228 KB.
-    Raises where it exceeds a block's 232,448 B or the body does not take
-    the kind or the arm."""
-    _check_hopper_kind(kind, "arms'")
+    static) for rows of ``kind`` (int8, i4, sign bits, f32 or bf16) at
+    width ``rot``, ``k`` and ``extract`` ("exact" or "binned") with the
+    side arrays named, at the block :func:`arms_queries` picks
+    (``_arms_block_bytes``). Two blocks of 64 queries share an SM where
+    twice this fits its 228 KB. Raises where it exceeds a block's
+    232,448 B or the body does not take the kind, the width (int8, f32
+    and bf16 rows: a multiple of 16 <= 128) or the arm."""
+    _check_hopper_kind(kind, "arms'", (0, 1, I8, I4, BITS))
     if extract not in ("exact", "binned"):
         raise ValueError(f"the Hopper arms' body takes the exact and binned "
                          f"arms, not {extract!r}")
-    ksteps = (rot // 16 if kind == I8 else 2 * -(-(rot // 8) // 4)
-              if kind == I4 else 2 * -(-rot // 32))
-    scan = 2048 * ksteps + _DEEP_STAGES * _ring_stage_bytes(
-        kind, rot, int(norms) + int(keep) + int(row_scale))
-    total = (scan + _ARMS_BUFFER + 64 * k * 8 if extract == "exact"
-             else max(scan, 64 * 128 * 6)) + _DEEP_STATIC
+    if kind in _FLOAT_ROWS and (rot % 16 or rot > 128):
+        raise ValueError(f"the Hopper arms' body takes f32 and bf16 rows at "
+                         f"a width that is a multiple of 16 <= 128, not "
+                         f"{rot}")
+    q = arms_queries(kind, rot, k, extract, norms, keep, row_scale)
+    total = _arms_block_bytes(kind, rot, k, extract == "exact", q,
+                              int(norms) + int(keep) + int(row_scale))
     if total > SMEM_LIMIT:
         raise ValueError(f"the Hopper arms' body needs {total} B of shared "
                          f"memory at rot={rot}, more than a block's "
@@ -618,7 +669,9 @@ def _launch(storage, kind, indices, list_sizes, bucket_list, bucket_q,
         body = ("pq4_hopper" if pq4_body(bf16, p, pl, k, extract) == "hopper"
                 else "core")
     else:
-        body = scan_body(kind, bf16, d, k, extract, cap)
+        body = scan_body(kind, bf16, d, k, extract, cap,
+                         centers is None and not vec
+                         and ctypes.c_float(scalar).value == 1.0)
     if body != "core":
         # the launch returns its CUDA error where the budget is exceeded
         st = _build.aligned(st)

@@ -2,7 +2,7 @@
 
     python3 -m raft_tpu_torch.tools.kernel_ab DIR_A DIR_B [DIR_C ...]
                                               [--order ABBA] [--out FILE]
-                                              [--kernels 12|3|2d|2q|2e|2b|1f]
+                                              [--kernels 12|3|2d|2q|2e|2b|2f|1f]
 
 Each DIR is the root of a checkout (for example a parent commit unpacked
 with ``git archive``). For each letter of ``--order`` (A the first DIR, B
@@ -53,7 +53,16 @@ pipeline (QPS, median of 5) with its recall@10: ``2e`` the exact arm
 40 on RaBitQ's, ``2b`` the default search at k 10 (binned); each first
 scan captured and handed to ``ivf_list_scan_topk`` at the arm the search
 took: held against the plain version, timed whole, by stage and with
-every list emptied, with the launch's body. Each scan is
+every list emptied, with the launch's body. Kernel 2's exact and binned
+arms over f32 rows (``--kernels 2f``): kernel 2 built at its three stage
+builds (with the Hopper arms' body's registers and spills where the
+checkout builds it); the IVF-Flat main path (SIFT-like 1M x 128 f32 rows,
+1024 lists, 10,000 queries, n_probes 64, k 10) and its exact
+(``local_recall_target`` 1.0) and default (binned) searches, each timed as
+a pipeline (QPS, median of 5) with its recall@10, its first scan captured
+and handed to ``ivf_list_scan_topk`` at the arm the search took: held
+against the plain version, timed whole, by stage and with every list
+emptied, with the launch's body. Each scan is
 held at the tolerance of the body its launch took (``chip_smoke``'s
 ``scan_tolerance``); a disagreement ends the run. Kernel 1's fold arm
 (``--kernels 1f``): kernel 1 built at its three stage builds (with the
@@ -102,6 +111,9 @@ def _child(root: str, kernels: str) -> dict:
     if "2q" in kernels:
         run.update(_pq4(cs, dev, run["kernels"]))
         kernels = kernels.replace("2q", "")
+    if "2f" in kernels:
+        run.update(_flat(cs, dev, run["kernels"]))
+        kernels = kernels.replace("2f", "")
     if "2e" in kernels or "2b" in kernels:
         run.update(_arms(cs, dev, run["kernels"], exact="2e" in kernels,
                          binned="2b" in kernels))
@@ -353,6 +365,53 @@ def _arms(cs, dev, kernels: dict, exact: bool, binned: bool) -> dict:
         if kw.get("extract", "exact") != arm:
             raise RuntimeError(f"{name} search took {kw.get('extract')}")
         kernels[f"{arm}:{name}"] = _scan_ab(cs, name, a, kw)
+        del captured, a, kw, ids
+    return out
+
+
+def _flat(cs, dev, kernels: dict) -> dict:
+    """Kernel 2's exact and binned arms over f32 rows at the IVF-Flat main
+    path's exact and default searches, and the searches around them
+    (module docstring)."""
+    import statistics
+
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat
+    from raft_tpu_torch.ops import ivf_scan
+
+    out = {"ptxas": _build_scan("ivf_arm_scan_kernel")}
+    x = cs.sift_like(1_000_000, 128, seed=1, device=dev)
+    q = cs.sift_like(10_000, 128, seed=2, device=dev)
+    _, truth = brute_force.knn(q[:1000], x, 10, device=dev)
+    index = ivf_flat.build(ivf_flat.IndexParams(n_lists=1024), x,
+                           device=dev)
+    del x
+    torch.cuda.empty_cache()
+    for arm, sp in (("exact", ivf_flat.SearchParams(
+            n_probes=64, local_recall_target=1.0)),
+                    ("binned", ivf_flat.SearchParams(n_probes=64))):
+        captured = {}
+        orig, _ = cs.record_scan(captured,
+                                 lambda a, kw: "scan" not in captured)
+        try:
+            ivf_flat.search(sp, index, q, 10)
+        finally:
+            ivf_scan.ivf_list_scan_topk = orig
+
+        def search(sp=sp):
+            return ivf_flat.search(sp, index, q, 10)
+
+        med = statistics.median(cs.timed_batches(search))
+        _, ids = search()
+        out[f"{arm}_ivf_flat_k10"] = {"qps": q.shape[0] / med,
+                                      "recall": cs.recall_of(ids[:1000],
+                                                             truth)}
+        a, kw = captured["scan"]
+        if kw.get("extract", "exact") != arm:
+            raise RuntimeError(f"IVF-Flat {arm} search took "
+                               f"{kw.get('extract')}")
+        kernels[f"{arm}:ivf_flat_k10"] = _scan_ab(cs, "IVF-Flat k10", a, kw)
         del captured, a, kw, ids
     return out
 

@@ -16,8 +16,11 @@ argument in DIR_B is matched at the exact arm (0):
 ``ivf_list_scan_topk_kernel<..., (int)0>`` to
 ``ivf_list_scan_topk_kernel<...>``,
 ``fused_knn_topk_kernel<T, (int)0>`` to ``fused_knn_topk_kernel<T>`` and
-``ivf_pq4_scan_topk_kernel<(int)0>`` to the untemplated kernel; branch
-labels are numbered anew in each function. Prints, per function, whether
+``ivf_pq4_scan_topk_kernel<(int)0>`` to the untemplated kernel; and the
+Hopper arms' kernel that gained a queries-a-block argument is matched at
+its 64: ``ivf_arm_scan_kernel<..., (int)64>`` to
+``ivf_arm_scan_kernel<...>``; branch labels are numbered anew in each
+function. Prints, per function, whether
 the instruction lists are equal, and one JSON line of the totals (also to
 ``--out``).
 Needs nvcc, cuobjdump and cu++filt (the CUDA toolkit).
@@ -52,6 +55,9 @@ def _key(name: str) -> str:
     argument dropped; other arms keep theirs (and match nothing)."""
     name = re.sub(r"((?:ivf_list_scan_topk|fused_knn_topk)_kernel<[^<>]*), "
                   r"\(int\)0>", r"\1>", name)
+    # the arms' kernel at the 64 queries a block it had before its Q
+    name = re.sub(r"(ivf_arm_scan_kernel<[^<>]*), \(int\)64>", r"\1>",
+                  name)
     # a template's name carries its return type, a plain function's not
     return name.replace("void ivf_pq4_scan_topk_kernel<(int)0>",
                         "ivf_pq4_scan_topk_kernel")

@@ -4,7 +4,9 @@ their Hopper body (raft_tpu_torch/ops/csrc/ivf_scan_arms.cuh), on the CPU.
 * ``scan_body`` is a pure function of (kind, round_ops, rot, k, extract,
   cap): a table over every boundary (rot 16 / 128 / 144, int8 rot off a
   multiple of 16, k 64 / 65, caps off a multiple of 128, f32 operands,
-  every other storage kind, the fold arm), and ``extract_code`` gives each
+  every other storage kind, the fold arm; f32 and bf16 rows, which take
+  the body too since it learnt them, at every edge in
+  ``test_torch_scan_float_arms``), and ``extract_code`` gives each
   (arm, body) its own code; ``_launch`` hands the C entry the body's code
   and counts the launch under that body (a stand-in library, no card).
 * ``arms_smem_bytes``: the block stays within a block's 232,448 B at the
@@ -84,8 +86,8 @@ def _drop_jit_caches():
     (BITS, True, 96, 65, "exact", 256, "core"),
     (BITS, False, 96, 40, "exact", 256, "core"),
     (BITS, True, 96, 10, "fold", 256, "core"),
-    (0, True, 96, 10, "exact", 256, "core"),
-    (1, True, 128, 10, "binned", 256, "core"),
+    (0, True, 96, 10, "exact", 256, "hopper_exact"),
+    (1, True, 128, 10, "binned", 256, "hopper_binned"),
     (F16, True, 96, 10, "exact", 256, "core"),
     (U8, True, 96, 10, "binned", 256, "core"),
     (PQ4, True, 96, 10, "exact", 256, "core"),
@@ -139,7 +141,7 @@ def test_arms_smem_fits_a_block(kind, rot, extract):
 
 
 @pytest.mark.parametrize("kind, rot, extract", [
-    (0, 96, "exact"), (PQ4, 96, "binned"), (I8, 96, "binned_deep"),
+    (F16, 96, "exact"), (PQ4, 96, "binned"), (I8, 96, "binned_deep"),
     (I4, 96, "fold")])
 def test_arms_smem_refuses_what_the_body_does_not_take(kind, rot, extract):
     with pytest.raises(ValueError):
@@ -150,11 +152,15 @@ def test_arms_smem_constants_are_the_headers():
     src = _HEADER.read_text()
     assert re.search(r"constexpr int KA = (\d+);", src).group(1) == \
         str(ivf_scan.ARMS_K_MAX)
-    assert "scan + (size_t)AQ * AT * 5 + (size_t)AQ * 8 + (size_t)AQ * k * 8;" \
+    # at q queries a block (64 for these rows, arms_queries)
+    assert "scan + (size_t)q * AT * 5 + (size_t)q * 8 + (size_t)q * k * 8;" \
         in src
     assert ivf_scan._ARMS_BUFFER == 64 * 128 * 5 + 64 * 8
-    assert "const size_t slots = (size_t)AQ * AT * 6;" in src
-    assert "return AQ / 16 * ks * 32 * 16;" in src
+    assert "const size_t slots = (size_t)q * AT * 6;" in src
+    assert "return q / 16 * ks * 32 * 16;" in src
+    assert all(ivf_scan.arms_queries(kind, 128, k, ex) == 64
+               for kind in (I8, I4, BITS) for k in (1, 64)
+               for ex in ("exact", "binned"))
     # int8 at rot 128 with norms and keep, as the header states
     assert ivf_scan.arms_smem_bytes(I8, 128, 10, "exact") == 98_304
     assert ivf_scan.arms_smem_bytes(I8, 128, 64, "exact") == 125_952
