@@ -55,7 +55,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              and f32 rows, d 48 and 128, with and without keep) and on
              random rows within fold_atol, kernel 2's on every storage
              kind and the pq4 kernel at R = 2 and 4; kernel 2's f16 and
-             uint8 rows), then at the paths' own shapes; then a small
+             uint8 rows); kernel 1's exact arm through its Hopper body
+             (f32 queries over f32 and bf16 rows, bf16 queries over bf16
+             and f32 rows; L2, inner product and cosine, with and without
+             keep, k 1, 10, 32, 33, 42 and 64, d 16 to 128, ragged m and
+             n) bit for bit on small integers, on random rows within
+             exact_atol, and d 136, k 65 and f16 rows left to the core;
+             then at the paths' own shapes; then a small
              IVF-Flat (f32, float16 and uint8 rows),
              a small IVF-PQ (L2 and inner product, then one per cache
              rung: i4, pq4, RaBitQ, raw i4, raw i8), each with the exact
@@ -74,7 +80,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              launch record); the
              same call at impl="fused_exact" beside it; recall@10 of both
              (the fold's no more than 0.01 under the exact arm's), QPS
-             and a profile;
+             and a profile; then the same fast search under a prefilter
+             keeping ~90% of the rows (kernel 1's exact arm under bf16
+             queries, the keep filter) against the filtered exact search,
+             its recall no more than 0.01 under the exact arm's and no
+             filtered-out row returned;
 5. CAGRA paths — on the same rows: (a) nn-descent
              (intermediate_graph_degree=64, at most 80 iterations) ->
              optimize (graph_degree=32) -> packed inline layout, with the
@@ -138,7 +148,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              and, on the Hopper arms' body, from the DEEP-10M int8 and i4
              default searches, binned_deep from the refined IVF-PQ one;
              the int8, i4 and RaBitQ rows are their exact searches' scans,
-             on that body too; kernel 1's fold (its
+             on that body too; kernel 1's exact arm from the recall
+             oracle (f32) and from the fast path's impl="fused_exact"
+             launch (bf16, with its library yardstick of bf16 products
+             and torch.topk), both on its Hopper body, whose f32 bound
+             counts three TF32 products a pair; kernel 1's fold (its
              Hopper body, with its library yardstick) from the fast brute
              force, kernel 2's fold from IVF-Flat under the fold table; a
              fold's bound counts its candidate write), and
@@ -168,7 +182,11 @@ order, and elsewhere to the tolerance with equal ids on tie-free keys.
 Kernel 1's Hopper fold body likewise: bit for bit on small integers,
 else within ``fold_atol`` (1.25 d 2^-24 of ||q|| times the largest row
 norm, twice that for L2) on sorted or merged rows, a lane's near-tied
-rival hidden.
+rival hidden. Kernel 1's exact arm on its Hopper body: bit for bit on
+small integers; else under bf16 queries within ``fold_atol`` (the same
+arithmetic), under f32 queries (3xTF32, f32 sums) within compare's own
+1e-4 relative + 1e-4, both with the join rule (the k-th's rival past the
+row is unseen).
 The exact and binned arms over the same rows, and over f32 and bf16 rows
 with plain queries (the f32 rows rounded to bf16 as the plain version
 rounds them), take the Hopper arms' body and are held the same way, the
@@ -181,7 +199,10 @@ body; and every launch of the pq4 rung's exact, default and refined
 default searches the pq4 Hopper body (launches by body printed), or the
 run fails after its report; so must the IVF-Flat main path's exact and
 default searches take the Hopper arms' body, and its fold under the table
-the core's.
+the core's; and kernel 1's exact arm must take its Hopper body at the
+recall oracle (the default exact search), at the fast path's
+impl="fused_exact" launch, at the filtered fast search and at the
+filtered exact search.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -203,6 +224,7 @@ H100_F32_FLOPS = 67e12                 # f32 on the CUDA cores
 # but counts one operation, not two
 H100_F32_ADDS = H100_F32_FLOPS / 2
 H100_BF16_FLOPS = 989e12               # bf16 tensor cores, dense
+H100_TF32_FLOPS = 495e12               # TF32 tensor cores, dense
 RTOL = ATOL = 1e-4
 F32, BF16 = torch.float32, torch.bfloat16
 RECALL_FLOOR = 0.90
@@ -414,10 +436,29 @@ def fold_atol(args, kw) -> torch.Tensor:
     return scale * bound * qn * xmax ** 0.5 + ATOL
 
 
+def exact_atol(args, kw):
+    """Absolute tolerance of kernel 1's exact arm on the Hopper body
+    against its plain version, at ``fused_knn_topk``'s ``args`` (queries,
+    dataset, k) and ``kw``. Under bf16 queries its dots are the fold
+    body's (exact bf16 products, 16 a k-step, sums that may truncate):
+    ``fold_atol``, one value a query. Under f32 queries they are 3xTF32:
+    each product hi.hi + hi.lo + lo.hi misses lo.lo and the split's own
+    rounding, about 2^-22 of |q_c x_c|, and each 16 dims' sum is added to
+    the dot at round to nearest, so a dot carries f32 rounding of its
+    terms in another order than the plain version's, as the core's dots
+    do: compare's ATOL (with 1e-4 relative), no looser."""
+    if args[0].dtype == torch.bfloat16:
+        return fold_atol(args, kw)
+    return ATOL
+
+
 def scan_tolerance(body: str, args, kw) -> dict:
     """``compare``'s keywords for a launch on ``body`` at ``args``,
     ``kw``: kernel 2's (a key of ``ivf_list_scan_topk.by_body``) or kernel
-    1's fold (``fused_knn_topk.by_body``, "fold_hopper", at
+    1's exact arm on its Hopper body ("exact_hopper", at
+    ``fused_knn_topk``'s arguments: ``exact_atol`` under the join rule,
+    since a near-tie with the row past the k-th is unseen in the plain
+    row) or fold (``fused_knn_topk.by_body``, "fold_hopper", at
     ``fused_knn_fold``'s arguments). The core at ATOL; the Hopper bodies
     over int8, i4 and sign-bit rows (binned_deep "hopper", and the exact
     and binned arms "hopper_exact" and "hopper_binned", whose dots are
@@ -428,6 +469,8 @@ def scan_tolerance(body: str, args, kw) -> dict:
     a near-tied rival (``hidden``)."""
     if body == "core":
         return {"atol": ATOL}
+    if body == "exact_hopper":
+        return {"atol": exact_atol(args, kw), "join": True}
     atol = {"hopper": deep_atol, "hopper_exact": deep_atol,
             "hopper_binned": deep_atol, "pq4_hopper": pq4_atol,
             "fold_hopper": fold_atol}[body](args, kw)
@@ -494,6 +537,19 @@ def scan_with_body(*args, **kw):
     return kd, ki, body
 
 
+def knn_launch(*args, **kw):
+    """``fused_knn_topk(*args, **kw)`` and the body its launch took (a key
+    of ``fused_knn_topk.by_body``)."""
+    from raft_tpu_torch.ops import fused_topk
+
+    counts = fused_topk.fused_knn_topk.by_body
+    before = dict(counts)
+    out = fused_topk.fused_knn_topk(*args, **kw)
+    body = next((b for b, c in counts.items() if c > before.get(b, 0)),
+                "core")
+    return out, body
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -547,13 +603,14 @@ def phase_small_parity(dev) -> None:
         x = torch.randn(n, d, generator=g, device=dev).to(dt)
         keep = ((torch.rand(n, generator=g, device=dev) < 0.6).int()
                 if filt else None)
-        kd, ki = fused_topk.fused_knn_topk(q, x, k, metric_kind=mk,
-                                           keep=keep)
+        (kd, ki), body = knn_launch(q, x, k, metric_kind=mk, keep=keep)
         pd, pi = fused_topk.fused_knn_topk_plain(q, x, k, metric_kind=mk,
                                                  keep=keep)
+        # d 128, k 10 takes the Hopper exact body
         compare(f"fused_knn_topk m={m} n={n} d={d} k={k} metric={mk} "
-                f"{str(qt)[6:]} x {str(dt)[6:]} keep={filt}", kd, ki, pd,
-                pi)
+                f"{str(qt)[6:]} x {str(dt)[6:]} keep={filt} ({body} body)",
+                kd, ki, pd, pi,
+                **scan_tolerance(body, (q, x, k), {"metric_kind": mk}))
 
     C, cap, d, nb, G, m = 16, 384, 96, 40, 256, 500
     storage = torch.randn(C, cap, d, generator=g, device=dev)
@@ -1445,6 +1502,84 @@ def hopper_fold_cases(dev, g) -> None:
                 **scan_tolerance(body, (q, x, k), kw))
 
 
+def phase_small_parity_exact(dev) -> None:
+    """Kernel 1's exact arm through the Hopper body against the plain
+    version: every metric, with and without a keep filter, k = 1, 10, 32,
+    33, 42 and 64, f32 queries over f32 and bf16 rows (3xTF32) and bf16
+    queries over bf16 and f32 rows (bf16 tensor cores), d from 16 to 128,
+    m across a 128-query block's edge and n off any tile or chunk. On
+    small integers every product and partial sum is exact (and every lo
+    of 3xTF32 0), so outputs equal bit for bit; on random rows (SIFT-like
+    magnitudes under L2, normal rows otherwise) within ``exact_atol`` with
+    ids equal on tie-free keys. Every launch must take the body; d 136, k
+    65 and f16 rows stay on the core."""
+    from raft_tpu_torch.ops import fused_topk
+
+    log("parity (small, ragged): kernel 1's exact arm, Hopper body")
+    g = torch.Generator(device=dev).manual_seed(31)
+    widths = (16, 48, 96, 128, 32, 64, 80, 112)
+    types = ((F32, F32), (F32, BF16), (BF16, BF16), (BF16, F32))
+    i = 0
+    for mk in (fused_topk.L2, fused_topk.IP, fused_topk.COSINE):
+        for k in (1, 10, 32, 33, 42, 64):
+            for qt, xt in types:
+                for filt in (False, True):
+                    d, m = widths[i % len(widths)], (70, 131, 200)[i % 3]
+                    n = 3000 + 37 * i
+                    i += 1
+                    q = torch.randint(-4, 5, (m, d), generator=g,
+                                      device=dev).float().to(qt)
+                    x = torch.randint(-4, 5, (n, d), generator=g,
+                                      device=dev).float().to(xt)
+                    keep = ((torch.rand(n, generator=g, device=dev) < 0.7)
+                            .int() if filt else None)
+                    kw = dict(metric_kind=mk, keep=keep)
+                    (kd, ki), body = knn_launch(q, x, k, **kw)
+                    pd, pi = fused_topk.fused_knn_topk_plain(q, x, k, **kw)
+                    name = (f"fused_knn_topk exact m={m} n={n} d={d} k={k} "
+                            f"metric={mk} {str(qt)[6:]} x {str(xt)[6:]} "
+                            f"keep={filt}")
+                    if body != "exact_hopper":
+                        raise SmokeFailure(f"{name}: took the {body} body")
+                    if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+                        compare(name, kd, ki, pd, pi)
+                        raise SmokeFailure(f"{name}: not bit for bit the "
+                                           "plain version's")
+    log(f"  {i} integer cases equal bit for bit")
+    for mk in (fused_topk.L2, fused_topk.IP, fused_topk.COSINE):
+        for (qt, xt), k, d in zip(types, (10, 42, 64, 33), (128, 96, 128,
+                                                            64)):
+            m, n = 300, 20_000 + 13 * d
+            if mk == fused_topk.L2:
+                q = torch.rand(m, d, generator=g, device=dev) * 255
+                x = torch.rand(n, d, generator=g, device=dev) * 255
+            else:
+                q = torch.randn(m, d, generator=g, device=dev)
+                x = torch.randn(n, d, generator=g, device=dev)
+            q, x = q.to(qt), x.to(xt)
+            keep = (torch.rand(n, generator=g, device=dev) < 0.8).int()
+            kw = dict(metric_kind=mk, keep=keep if k == 42 else None)
+            (kd, ki), body = knn_launch(q, x, k, **kw)
+            pd, pi = fused_topk.fused_knn_topk_plain(q, x, k, **kw)
+            name = (f"fused_knn_topk exact random rows d={d} k={k} metric="
+                    f"{mk} {str(qt)[6:]} x {str(xt)[6:]}")
+            if body != "exact_hopper":
+                raise SmokeFailure(f"{name}: took the {body} body")
+            compare(name, kd, ki, pd, pi, **scan_tolerance(body, (q, x, k),
+                                                           kw))
+    for d, k, xt in ((136, 10, F32), (128, 65, F32), (128, 10,
+                                                       torch.float16)):
+        q = torch.randn(70, d, generator=g, device=dev)
+        x = torch.randn(3000, d, generator=g, device=dev).to(xt)
+        (kd, ki), body = knn_launch(q, x, k, metric_kind=fused_topk.L2)
+        pd, pi = fused_topk.fused_knn_topk_plain(q, x, k,
+                                                 metric_kind=fused_topk.L2)
+        name = f"fused_knn_topk exact d={d} k={k} rows {str(xt)[6:]}"
+        if body != "core":
+            raise SmokeFailure(f"{name}: took the {body} body, not the core")
+        compare(name + " (core body)", kd, ki, pd, pi)
+
+
 def compare_exact(name, outs_k, outs_p) -> None:
     """Kernel outputs against the plain version's: every tensor equal."""
     diff = [i for i, (a, b) in enumerate(zip(outs_k, outs_p))
@@ -1764,8 +1899,10 @@ def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
         torch.cuda.synchronize()
         launches = {name: orig.launches + rec.launches
                     for name, (_, orig, rec) in wrapped.items()}
-        # kernel 2's launches by body (ivf_list_scan_topk.by_body's keys)
+        # kernel 2's launches by body (ivf_list_scan_topk.by_body's keys),
+        # and kernel 1's (the recall oracle, fused_knn_topk.by_body's)
         scan_bodies = dict(wrapped["ivf_list_scan_topk"][2].by_body)
+        knn_bodies = dict(wrapped["fused_knn_topk"][2].by_body)
     finally:
         for name, (mod, orig, _) in wrapped.items():
             setattr(mod, name, orig)
@@ -1787,6 +1924,8 @@ def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
         if cnt <= 0:
             raise SmokeFailure(f"{name} never launched on the main path")
     log(f"  ivf_list_scan_topk launches by body: {scan_bodies}")
+    log(f"  fused_knn_topk launches by body (the recall oracle): "
+        f"{knn_bodies}")
 
     # QPS: median of 5 timed 10k-query batches after a warm-up
     ivf_flat.search(sp, index, q, k)
@@ -1804,7 +1943,8 @@ def main_path(dev, n=1_000_000, d=128, nq=10_000, n_lists=1024,
     profile_search(lambda: ivf_flat.search(sp, index, q, k))
     return {"captured": captured, "launches": launches, "build_s": build_s,
             "x": x, "q": q, "truth": truth, "index": index,
-            "recall": rec, "qps": nq / med, "scan_bodies": scan_bodies}
+            "recall": rec, "qps": nq / med, "scan_bodies": scan_bodies,
+            "knn_bodies": knn_bodies}
 
 
 def profile_search(search) -> None:
@@ -2099,14 +2239,55 @@ def default_search(label: str, first, q, truth, k: int,
             "launches": launches, "by_body": bodies, "failed": failed}
 
 
+def exact_library(queries, dataset, k, kw, block: int = 1024):
+    """The bf16 exact arm's yardstick of PyTorch calls, never used by the
+    port: in blocks of ``block`` queries, the bf16 distance block
+    (``torch.matmul`` of the bf16 operands, the epilogue in f32) and
+    ``torch.topk`` of k over it (dots that the bf16 product's output
+    rounds to bf16: a yardstick of time, not of the values)."""
+    from raft_tpu_torch.ops import fused_topk
+
+    mk = kw["metric_kind"]
+    x = dataset.to(torch.bfloat16)
+    xn = kw.get("norms")
+    if mk != fused_topk.IP and xn is None:
+        xn = (x.float() ** 2).sum(1)
+    out = []
+    for q0 in range(0, queries.shape[0], block):
+        qb = queries[q0:q0 + block].to(torch.bfloat16)
+        qa = None
+        if mk != fused_topk.IP:
+            qa = (qb.float() ** 2).sum(1)
+            qa = (qa if mk == fused_topk.L2 else qa.sqrt())[:, None]
+        dist = fused_topk._epilogue(
+            torch.matmul(qb, x.T).float(), mk, qa,
+            None if xn is None else xn[None, :])
+        if kw.get("keep") is not None:
+            dist = torch.where(kw["keep"][None, :] > 0, dist, float("inf"))
+        out.append(torch.topk(dist, k, dim=1, largest=False))
+        del dist
+    return out
+
+
 def measure_knn(args, kw, launches) -> dict:
+    """Kernel 1's exact arm at a path's captured inputs: held against the
+    plain version at the tolerance of the body its launch took, timed
+    whole and by stage, beside the plain version, the library call (f32:
+    ``torch.topk(torch.cdist)``; bf16: ``exact_library``) and the bound:
+    the inputs read and the candidates written once against 2 m n d
+    operations at the rate of the arithmetic that runs them (bf16 tensor
+    cores; f32 operands on the Hopper body three TF32 products at the
+    TF32 rate, on the core the f32 CUDA cores; both printed)."""
     from raft_tpu_torch.ops import fused_topk
 
     queries, dataset, k = args[:3]
     mk = kw["metric_kind"]
-    log(f"kernel fused_knn_topk at the main path's shapes: queries "
+    bf16 = queries.dtype == torch.bfloat16
+    label = "fused_knn_topk" + (":exact_bf16" if bf16 else "")
+    log(f"kernel {label} at its path's shapes: queries "
         f"{tuple(queries.shape)} {queries.dtype}, dataset "
-        f"{tuple(dataset.shape)} {dataset.dtype}, k={k}, metric={mk}")
+        f"{tuple(dataset.shape)} {dataset.dtype}, k={k}, metric={mk}, "
+        f"keep={kw.get('keep') is not None}")
     before = fused_topk.fused_knn_topk.launches
 
     def kern():
@@ -2115,41 +2296,58 @@ def measure_knn(args, kw, launches) -> dict:
     def plain():
         return fused_topk.fused_knn_topk_plain(*args, **kw)
 
-    kd, ki = kern()
+    (kd, ki), body = knn_launch(*args, **kw)
     pd, pi = plain()
-    err = compare("fused_knn_topk (main-path shapes)", kd, ki, pd, pi)
-    ms = cuda_ms(kern, reps=10)
-    stage_split("fused_knn_topk", kern, ms)
-    plain_ms = cuda_ms(plain, reps=2)
+    err = compare(f"{label} ({body} body, path shapes)", kd, ki, pd, pi,
+                  **scan_tolerance(body, args, kw))
+    del kd, ki, pd, pi
+    reps = 3 if bf16 else 10
+    ms = cuda_ms(kern, reps=reps)
+    stage_split(label, kern, ms)
+    plain_ms = cuda_ms(plain, reps=1 if bf16 else 2)
     fused_topk.fused_knn_topk.launches = before     # measurement launches
+    torch.cuda.empty_cache()
 
-    def library():
-        return torch.topk(torch.cdist(queries.float(), dataset.float()), k,
-                          largest=False)
-
-    lib_ms = cuda_ms(library, reps=3)
+    if bf16:
+        lib_ms = cuda_ms(lambda: exact_library(queries, dataset, k, kw),
+                         reps=1)
+    else:
+        lib_ms = cuda_ms(lambda: torch.topk(
+            torch.cdist(queries.float(), dataset.float()), k,
+            largest=False), reps=3)
+    torch.cuda.empty_cache()
     m, d = queries.shape
     n = dataset.shape[0]
-    bytes_ = (m * d * 4 + n * d * dataset.element_size() + n * 4 + m * 4
-              + m * k * 8 + (n * 4 if kw.get("keep") is not None else 0))
+    bytes_ = (m * d * queries.element_size() + n * d * dataset.element_size()
+              + n * 4 + m * 4 + m * k * 8
+              + (n * 4 if kw.get("keep") is not None else 0))
     flops = 2.0 * m * n * d
-    bf16 = torch.bfloat16 in (queries.dtype, dataset.dtype)
-    peak = H100_BF16_FLOPS if bf16 else H100_F32_FLOPS
     t_bytes = bytes_ / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    log(f"  fused_knn_topk: {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, "
-        f"{lib_ms:.3f} ms torch.cdist+torch.topk; {flops / 1e9:.1f} GFLOP "
-        f"({'bf16' if bf16 else 'f32'}), {bytes_ / 1e9:.3f} GB -> bound "
+    if bf16:
+        t_ops, arith = flops / H100_BF16_FLOPS * 1e3, "bf16 tensor cores"
+    else:
+        t_core = flops / H100_F32_FLOPS * 1e3
+        t_tf32 = 3 * flops / H100_TF32_FLOPS * 1e3
+        log(f"  {label}: the dots' bound {t_core:.3f} ms on the f32 CUDA "
+            f"cores, {t_tf32:.3f} ms as 3xTF32 on the tensor cores")
+        hopper = body == "exact_hopper"
+        t_ops = t_tf32 if hopper else t_core
+        arith = "3xTF32" if hopper else "f32 CUDA cores"
+    log(f"  {label} ({body}): {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, "
+        f"{lib_ms:.3f} ms library; {flops / 1e9:.1f} GFLOP ({arith}) -> "
+        f"{t_ops:.3f} ms, {bytes_ / 1e9:.3f} GB -> {t_bytes:.3f} ms; bound "
         f"{max(t_bytes, t_ops):.3f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})")
-    return {"name": "fused_knn_topk", "route": "cuda",
-            "source": "raft_tpu_torch/ops/csrc/fused_knn_topk.cu",
+    hopper = body == "exact_hopper"
+    return {"name": label, "route": "cuda",
+            "source": "raft_tpu_torch/ops/csrc/" + (
+                "fused_exact_hopper.cuh" if hopper else "fused_knn_topk.cu"),
             "replaces": "raft_tpu/ops/fused_topk.py:113",
             "launches": launches, "max_abs_err": err["max_abs_err"],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "body": body}
 
 
 def fast_bf_path(dev, x, q, truth, k=10) -> dict:
@@ -2159,10 +2357,13 @@ def fast_bf_path(dev, x, q, truth, k=10) -> dict:
     at the analytic tile (``fused_fold:2048``) on the Hopper body
     (``fold_hopper``), both asserted from the launch record, counts set to
     0 just before the search and read just after;
-    the same call with ``impl="fused_exact"`` runs beside it. Recall@k of
-    both on the truth's queries, QPS (median of 5 batches), a profile of
-    one fold batch. Gate: the fold's recall no more than 0.01 under the
+    the same call with ``impl="fused_exact"`` runs beside it, then a
+    filtered search (kernel 1's exact arm under bf16 with the keep filter),
+    whose launch is the one returned for the ``exact_bf16`` row, beside its
+    count. Recall@k of each on the truth's queries, QPS (median of 5
+    batches), a profile of one fold batch. Gate: the fold's recall no more than 0.01 under the
     exact arm's (the fold's band, tests/test_pallas_parity.py:69-80)."""
+    from raft_tpu_torch.core.bitset import Bitset
     from raft_tpu_torch.neighbors import brute_force
     from raft_tpu_torch.ops import fused_topk
 
@@ -2179,6 +2380,11 @@ def fast_bf_path(dev, x, q, truth, k=10) -> dict:
         rec.by_impl[impl] = rec.by_impl.get(impl, 0) + rec.launches - before
         return out
 
+    # a prefilter keeping ~90% of the rows (the filtered fast search)
+    n = x.shape[0]
+    kept = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(
+        7), device=dev) < 0.9
+    bitset = Bitset.from_dense(kept)
     rec.launches = 0
     rec.by_impl = {}
     rec.by_body = {}
@@ -2189,15 +2395,36 @@ def fast_bf_path(dev, x, q, truth, k=10) -> dict:
         launches = dict(rec.by_impl)
         bodies = dict(rec.by_body)
         rec.by_impl.clear()
+        rec.by_body.clear()
         _, eids = brute_force.search(index, q, k, fast=True,
                                      impl="fused_exact")
         torch.cuda.synchronize()
         exact_launches = dict(rec.by_impl)
+        exact_bodies = dict(rec.by_body)
+        rec.by_impl.clear()
+        rec.by_body.clear()
+        # the bf16 row times the filtered search's launch (with its keep),
+        # the one whose launches it reports
+        captured.pop("fused_exact")
+        _, fids = brute_force.search(index, q, k, fast=True,
+                                     prefilter=bitset)
+        torch.cuda.synchronize()
+        filt_launches = dict(rec.by_impl)
+        filt_bodies = dict(rec.by_body)
+        rec.by_impl.clear()
+        rec.by_body.clear()
+        # the filtered exact search (f32, with the keep filter) as truth
+        _, ftruth = brute_force.search(index, q[:truth.shape[0]], k,
+                                       prefilter=bitset)
+        torch.cuda.synchronize()
+        ftruth_bodies = dict(rec.by_body)
     finally:
         fused_topk.fused_knn_topk = orig
     log(f"fast brute force (SIFT-1M rows, {q.shape[0]} queries, k={k}): "
         f"default launches {launches} by body {bodies}, impl='fused_exact' "
-        f"launches {exact_launches}")
+        f"launches {exact_launches} by body {exact_bodies}, filtered "
+        f"launches {filt_launches} by body {filt_bodies}; the filtered "
+        f"exact search by body {ftruth_bodies}")
     if launches != {"fused_fold:2048": 1}:
         raise SmokeFailure(f"the default fast brute force took {launches}, "
                            "not one launch of fused_fold:2048")
@@ -2207,12 +2434,18 @@ def fast_bf_path(dev, x, q, truth, k=10) -> dict:
                            "(ops/fused_topk.fold_body)")
     if exact_launches != {"fused_exact": 1}:
         raise SmokeFailure(f"impl='fused_exact' took {exact_launches}")
-    n = truth.shape[0]
-    for out in (ids, eids):
+    if filt_launches != {"fused_exact": 1}:
+        raise SmokeFailure(f"the filtered fast search took {filt_launches}")
+    nt = truth.shape[0]
+    for out in (ids, eids, fids):
         if out.shape != (q.shape[0], k) or bool((out < 0).any()):
             raise SmokeFailure("fast brute force returned missing neighbours")
-    rec_fold, rec_exact = recall_of(ids[:n], truth), recall_of(eids[:n],
-                                                                truth)
+    if not bool(kept[fids.long()].all()) or not bool(
+            kept[ftruth.long().clamp_min(0)].all()):
+        raise SmokeFailure("a filtered search returned a filtered-out row")
+    rec_fold, rec_exact = recall_of(ids[:nt], truth), recall_of(eids[:nt],
+                                                                 truth)
+    rec_filt = recall_of(fids[:nt], ftruth)
     runs = {}
     for name, impl in (("fold", "auto"), ("exact", "fused_exact")):
         times = timed_batches(lambda: brute_force.search(
@@ -2222,17 +2455,33 @@ def fast_bf_path(dev, x, q, truth, k=10) -> dict:
             f"{statistics.median(times) * 1e3:.2f} ms (median of 5) -> "
             f"{runs[name]:.1f} QPS; batches ms "
             f"{[round(t * 1e3, 3) for t in times]}")
-    log(f"  recall@{k} on {n} queries: fold {rec_fold:.4f}, exact arm "
-        f"{rec_exact:.4f}")
+    log(f"  recall@{k} on {nt} queries: fold {rec_fold:.4f}, exact arm "
+        f"{rec_exact:.4f}; filtered {rec_filt:.4f} against the filtered "
+        f"exact search")
     profile_search(lambda: brute_force.search(index, q, k, fast=True))
     failed = []
     if rec_fold < rec_exact - 0.01:
         failed.append(f"fast brute force: fold recall {rec_fold:.4f} < exact"
                       f" arm's {rec_exact:.4f} - 0.01")
+    if rec_filt < rec_exact - 0.01:
+        failed.append(f"filtered fast brute force: recall {rec_filt:.4f} < "
+                      f"the exact arm's unfiltered {rec_exact:.4f} - 0.01")
+    # kernel 1's exact arm takes the Hopper body at the fast path's
+    # impl="fused_exact" launch, the filtered search's and the filtered
+    # exact search's (ops/fused_topk.exact_body)
+    for label, got in (("impl='fused_exact'", exact_bodies),
+                       ("the filtered fast search", filt_bodies),
+                       ("the filtered exact search", ftruth_bodies)):
+        if got != {"exact_hopper": 1}:
+            failed.append(f"{label}: kernel 1's exact arm took {got}, not "
+                          "the Hopper body")
     del index
     torch.cuda.empty_cache()
     return {"captured": captured["fused_fold:2048"],
-            "launches": launches["fused_fold:2048"], "recall": rec_fold,
+            "launches": launches["fused_fold:2048"],
+            "exact_captured": captured["fused_exact"],
+            "exact_launches": filt_launches["fused_exact"],
+            "filtered_recall": rec_filt, "recall": rec_fold,
             "exact_recall": rec_exact, "qps": runs["fold"],
             "exact_qps": runs["exact"], "failed": failed}
 
@@ -3294,6 +3543,7 @@ def main() -> int:
         phase_small_parity_binned(dev)
         phase_small_parity_pq4(dev)
         phase_small_parity_fold(dev)
+        phase_small_parity_exact(dev)
         phase_small_parity_graph(dev)
         phase_small_search(dev)
         phase_small_ivf_pq(dev)
@@ -3307,6 +3557,8 @@ def main() -> int:
         del index
         bres = fast_bf_path(dev, x, q, truth)
         fold_row = measure_knn_fold(*bres.pop("captured"), bres["launches"])
+        exact_bf16_row = measure_knn(*bres.pop("exact_captured"),
+                                     bres["exact_launches"])
         cres = cagra_path(dev, x, q, truth)
         pres = cagra_ivf_pq_path(dev, x, q, truth)
         del x, q, truth
@@ -3356,6 +3608,8 @@ def main() -> int:
         # the fold arms: kernel 1's from the default fast brute force,
         # kernel 2's from the IVF-Flat search under the fold table
         kernels.append(fold_row)
+        # kernel 1's exact arm under bf16: the filtered fast search's launch
+        kernels.append(exact_bf16_row)
         kernels.append(dict(flat_fold["kernel"],
                             name="ivf_list_scan_topk:fold"))
     except SmokeFailure as e:
@@ -3374,8 +3628,17 @@ def main() -> int:
     log(f"fast brute force (SIFT-1M, k_cand 42): default (fused_fold:2048)"
         f" QPS {bres['qps']:.1f}, recall@10 {bres['recall']:.4f}; "
         f"impl='fused_exact' QPS {bres['exact_qps']:.1f}, recall@10 "
-        f"{bres['exact_recall']:.4f}")
+        f"{bres['exact_recall']:.4f}; filtered recall@10 "
+        f"{bres['filtered_recall']:.4f}")
     failed = rres.pop("failed") + bres["failed"]
+    # the recall oracle (the default exact search) takes kernel 1's exact
+    # arm on its Hopper body (ops/fused_topk.exact_body); fast_bf_path
+    # holds the fast path's impl="fused_exact" and filtered launches
+    log(f"exact body, the recall oracle: launches by body "
+        f"{res['knn_bodies']}")
+    if res["knn_bodies"] != {"exact_hopper": 1}:
+        failed.append(f"the recall oracle: kernel 1's exact arm took "
+                      f"{res['knn_bodies']}, not the Hopper body")
     # the binned_deep launches of these three paths must take the Hopper
     # body (ops/ivf_scan.binned_deep_body)
     for label, arms, bodies in [

@@ -41,8 +41,18 @@
 // of 16 and tiles of at most 2048 rows take it where the caller routes
 // them (ops/fused_topk.py:fold_body); the rest keep this file's
 // kFold2..4.
+//
+// The exact arm has a second body too (fused_exact_hopper.cuh, entry
+// fused_knn_exact_hopper below): 128 queries a block, a cp.async ring of
+// 64-row tiles under mbarriers, bf16 operands on wgmma tiles and f32
+// operands as 3xTF32 on mma.sync, the candidates under each query's k-th
+// distance merged by the warp that owns the query. f32 or bf16 queries
+// over f32 or bf16 rows with d a multiple of 16 up to 128 and k <= 64
+// take it where the caller routes them (ops/fused_topk.py:exact_body);
+// the rest keep this file's kExact.
 #include "scan_topk.cuh"
 #include "fused_fold_hopper.cuh"
+#include "fused_exact_hopper.cuh"
 
 using namespace rtt;
 
@@ -213,4 +223,59 @@ extern "C" int fused_knn_fold_hopper(const void* queries, const void* qaux,
                            n, d, tile_n, n_tiles, metric, od, oi, s);
   return foldh::launch_r(fold_r, q, qa, static_cast<const float*>(x), xn,
                          kp, m, n, d, tile_n, n_tiles, metric, od, oi, s);
+}
+
+// The exact arm through the Hopper body (fused_exact_hopper.cuh): queries
+// [m, d] bf16 (bf16_ops) or f32, 16-byte aligned; qaux [m] f32 (null for
+// IP); x [n, d] bf16 (x_bf16) or f32, 16-byte aligned; norms [n] f32 (null
+// for IP) and keep [n] int32 or null, 16-byte aligned; d a multiple of 16
+// up to 128; k <= 64; chunk_rows a multiple of 64 with n_chunks =
+// ceil(n / chunk_rows); block_q and stages the body's queries a block and
+// ring stages (exacth::block_queries, ring_stages); out_d / out_i [m,
+// n_chunks * k]. Returns a cudaError_t code.
+extern "C" int fused_knn_exact_hopper(const void* queries, const void* qaux,
+                                      const void* x, int x_bf16,
+                                      const void* norms, const void* keep,
+                                      int m, int n, int d, int k,
+                                      int chunk_rows, int n_chunks,
+                                      int metric, int bf16_ops, int block_q,
+                                      int stages, void* out_d, void* out_i,
+                                      void* stream) {
+  using namespace exacth;
+  const bool bo = bf16_ops != 0, xb16 = x_bf16 != 0;
+  if (m < 1 || n < 1 || d < 16 || d % 16 != 0 || d > EDMAX || k < 1 ||
+      k > EKA || chunk_rows < ET || chunk_rows % ET != 0 ||
+      n_chunks != (n + chunk_rows - 1) / chunk_rows ||
+      block_q != block_queries(bo, xb16, d, k) ||
+      stages != ring_stages(bo, xb16, d, k, block_q) ||
+      smem_bytes(bo, xb16, d, k, block_q, stages) + STATIC_BYTES >
+          (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  auto aligned16 = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+  };
+  if (!aligned16(queries) || !aligned16(x) || !aligned16(norms) ||
+      !aligned16(keep))
+    return (int)cudaErrorMisalignedAddress;
+  const auto* qa = static_cast<const float*>(qaux);
+  const auto* xn = static_cast<const float*>(norms);
+  const auto* kp = static_cast<const int*>(keep);
+  auto* od = static_cast<float*>(out_d);
+  auto* oi = static_cast<int*>(out_i);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* xh = static_cast<const __nv_bfloat16*>(x);
+  const auto* xf = static_cast<const float*>(x);
+  if (bo)
+    return xb16 ? launch_q<true>(block_q, queries, qa, xh, xn, kp, m, n, d,
+                                 k, chunk_rows, n_chunks, metric, stages,
+                                 od, oi, s)
+                : launch_q<true>(block_q, queries, qa, xf, xn, kp, m, n, d,
+                                 k, chunk_rows, n_chunks, metric, stages,
+                                 od, oi, s);
+  return xb16 ? launch_q<false>(block_q, queries, qa, xh, xn, kp, m, n, d, k,
+                                chunk_rows, n_chunks, metric, stages, od,
+                                oi, s)
+              : launch_q<false>(block_q, queries, qa, xf, xn, kp, m, n, d, k,
+                                chunk_rows, n_chunks, metric, stages, od,
+                                oi, s);
 }

@@ -43,10 +43,27 @@ widths and wider tiles keep the core's. The Hopper body sums each dot's
 exact bf16 products in another order than the plain version, so it is
 bit for bit the plain version only where every partial sum is exact.
 
+The exact arm has two CUDA bodies as well: the shared core's
+(``fused_knn_topk.cu``, kExact) and one designed for Hopper
+(``csrc/fused_exact_hopper.cuh``: 128 queries a block, a cp.async ring of
+64-row tiles, each (query, row) under the query's k-th distance buffered
+and merged by warps). :func:`exact_body` routes f32 or bf16 queries over
+f32 or bf16 rows with d a multiple of 16 up to 128 and k <= 64 to it;
+other types, widths and k keep the core. Under bf16 queries its dots are
+the fold body's ``wgmma`` bf16 tiles (exact products, f32 sums in another
+order); under f32 queries they are 3xTF32 on the tensor cores (each
+operand split into hi = tf32(v) and lo = tf32(v - hi), hi.hi + hi.lo +
+lo.hi with f32 sums, each 16 dims' products added to the dot at round to
+nearest), which keeps f32 accuracy: bit for bit the plain version where
+every partial sum is exact, and otherwise its sums' rounding in another
+order. Its chunks of rows are chosen so the grid fills the card's SMs
+(:func:`exact_chunk_rows`).
+
 On a CUDA tensor :func:`fused_knn_topk` (and :func:`fused_knn_fold`, the
 fold's unmerged buffer) launches the kernel or raises; on a CPU tensor it
 runs the plain version; nothing else. Its ``launches`` counts every
-launch and ``by_body`` splits them by body ("core", "fold_hopper").
+launch and ``by_body`` splits them by body ("core", "fold_hopper",
+"exact_hopper").
 """
 
 from __future__ import annotations
@@ -77,6 +94,12 @@ _TARGET_BLOCKS = 2048
 # ids in 4 bits, so at most 16 chunks a tile
 SMEM_LIMIT = 232_448
 _FOLDH_C, _FOLDH_STAGES, _FOLDH_MAX_TILE = 128, 2, 2048
+# the Hopper exact body's block (csrc/fused_exact_hopper.cuh): 64-row
+# tiles in 2 to 6 ring stages with their norms and keep flags, k <= 64, d
+# <= 128
+_EXH_T, _EXH_STAGES, _EXH_KMAX, _EXH_DMAX = 64, 6, 64, 128
+_EXH_SIDE = 2 * _EXH_T * 4
+_EXH_STATIC = 2 * _EXH_STAGES * 8     # the ring's mbarriers
 
 
 def _operands(queries: torch.Tensor):
@@ -195,6 +218,87 @@ def fold_body(queries_dtype: torch.dtype, d: int, tile_n: int,
     return "fold_hopper"
 
 
+def exact_row_bytes(bf16_ops: bool, x_bf16: bool, d: int) -> int:
+    """Bytes of a row in a ring stage of the Hopper exact body: bf16
+    operands' bf16 rows (f32 ones rounded as staged); f32 operands' f32
+    rows, or bf16 rows padded to 8 words mod 32 (d a multiple of 32)."""
+    d = int(d)
+    if bf16_ops:
+        return 2 * d
+    if x_bf16:
+        return 2 * d + (32 if d % 32 == 0 else 0)
+    return 4 * d
+
+
+def exact_smem_bytes(bf16_ops: bool, x_bf16: bool, d: int, k: int,
+                     q: int, ns: int) -> int:
+    """Dynamic shared memory of a Hopper exact block of ``q`` queries and
+    ``ns`` ring stages: the queries (bf16 or f32), the stages of 64 rows
+    with their norms and keep flags, the candidate buffer (q x 64 of an
+    f32 distance and a row byte, q counts) and the lists (q k of f32 and
+    int32)."""
+    return (q * int(d) * (2 if bf16_ops else 4)
+            + ns * (_EXH_T * exact_row_bytes(bf16_ops, x_bf16, d)
+                    + _EXH_SIDE)
+            + q * _EXH_T * 5 + q * 4 + q * int(k) * 8)
+
+
+def exact_block_queries(bf16_ops: bool, x_bf16: bool, d: int, k: int) -> int:
+    """Queries a Hopper exact block holds: 128 where that block fits with
+    two ring stages, else 64 (f32 rows under f32 queries past k 57 at d
+    128)."""
+    return 128 if exact_smem_bytes(bf16_ops, x_bf16, d, k, 128, 2) + \
+        _EXH_STATIC <= SMEM_LIMIT else 64
+
+
+def exact_ring_stages(bf16_ops: bool, x_bf16: bool, d: int, k: int,
+                      q: int) -> int:
+    """Ring stages of a Hopper exact block of ``q`` queries: as many as
+    fit, 6 at most and 2 at least (3 for the f32 oracle at d 128, k 10;
+    6 under bf16 operands at k 42)."""
+    ns = _EXH_STAGES
+    while ns > 2 and exact_smem_bytes(bf16_ops, x_bf16, d, k, q, ns) + \
+            _EXH_STATIC > SMEM_LIMIT:
+        ns -= 1
+    return ns
+
+
+def exact_body(queries_dtype: torch.dtype, rows_dtype: torch.dtype, d: int,
+               k: int) -> str:
+    """The body an exact launch takes: "exact_hopper"
+    (``csrc/fused_exact_hopper.cuh``) for f32 or bf16 queries (the
+    operands' compute type: bf16 queries round f32 rows) over f32 or bf16
+    rows with ``d`` a multiple of 16 up to 128 and ``k`` <= 64; else
+    "core" (the shared core's kExact)."""
+    types = (torch.float32, torch.bfloat16)
+    if queries_dtype not in types or rows_dtype not in types or \
+            int(d) % 16 or not 0 < int(d) <= _EXH_DMAX or \
+            not 0 < int(k) <= _EXH_KMAX:
+        return "core"
+    return "exact_hopper"
+
+
+def exact_chunk_rows(m: int, n: int, block_q: int, sms: int) -> int:
+    """Rows a chunk (a multiple of 64) of a Hopper exact launch: the
+    fewest chunks (each a block per query tile, one block an SM) whose
+    grid fills at least 95% of its last wave of ``sms`` blocks, else the
+    best fill, at most 64 chunks of at least 8 tiles each. Fewer chunks
+    mean fewer candidates to merge, and each (query, chunk)'s list fills
+    once: 16 chunks at 1,000 queries on 132 SMs, 5 at 10,000."""
+    q_tiles = cdiv(m, block_q)
+    c_max = max(1, min(64, int(n) // (8 * _EXH_T)))
+    best, best_fill = 1, 0.0
+    for c in range(1, c_max + 1):
+        blocks = q_tiles * c
+        fill = blocks / (cdiv(blocks, sms) * sms)
+        if fill >= 0.95:
+            best = c
+            break
+        if fill > best_fill:
+            best, best_fill = c, fill
+    return round_up_to_multiple(cdiv(n, best), _EXH_T)
+
+
 def _check(queries, dataset, k, metric_kind, variant="exact", tile_n=None):
     if queries.dim() != 2 or dataset.dim() != 2 or \
             queries.shape[1] != dataset.shape[1]:
@@ -252,7 +356,7 @@ def fused_knn_topk(queries: torch.Tensor, dataset: torch.Tensor, k: int, *,
 
 
 fused_knn_topk.launches = 0
-fused_knn_topk.by_body = {"core": 0, "fold_hopper": 0}
+fused_knn_topk.by_body = {"core": 0, "fold_hopper": 0, "exact_hopper": 0}
 
 
 def fused_knn_fold(queries: torch.Tensor, dataset: torch.Tensor, k: int, *,
@@ -299,7 +403,7 @@ def _launch(queries, dataset, k, metric_kind, norms, qaux, keep,
         else dataset.float()
     x = x.contiguous()
     body = (fold_body(queries.dtype, d, tile_n, k) if variant == "fold"
-            else "core")
+            else exact_body(queries.dtype, dataset.dtype, d, k))
     xn = _norms(x, metric_kind, bf16, norms)
     qa = _aux(q32, metric_kind, qaux)
     if xn is not None:
@@ -311,6 +415,9 @@ def _launch(queries, dataset, k, metric_kind, norms, qaux, keep,
     if body == "fold_hopper":
         return _launch_fold_hopper(queries, x, xn, qa, kp, k, metric_kind,
                                    tile_n)
+    if body == "exact_hopper":
+        return _launch_exact_hopper(queries if bf16 else q32, x, xn, qa, kp,
+                                    k, metric_kind, bf16)
     if variant == "fold":
         # a block per (64 queries, row tile), writing 128 R slots a query
         fold_r = fold_depth(k)
@@ -375,6 +482,43 @@ def _launch_fold_hopper(queries, x, xn, qa, kp, k, metric_kind, tile_n):
                 int(metric_kind), fold_r, ptr(out_d), ptr(out_i), stream)
     _build.check(lib, "fused_knn_fold_hopper", rc)
     _count("fold_hopper")
+    return out_d, out_i
+
+
+def _launch_exact_hopper(queries, x, xn, qa, kp, k, metric_kind, bf16):
+    """The exact arm through the Hopper body (:func:`exact_body`): bf16
+    queries over bf16 rows or f32 ones (rounded as staged), or f32 queries
+    over f32 or bf16 rows (3xTF32), in chunks of :func:`exact_chunk_rows`
+    rows."""
+    dev = queries.device
+    m, d = queries.shape
+    n = x.shape[0]
+    x_bf16 = x.dtype == torch.bfloat16
+    bq = exact_block_queries(bf16, x_bf16, d, k)
+    ns = exact_ring_stages(bf16, x_bf16, d, k, bq)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk_rows = exact_chunk_rows(m, n, bq, sms)
+    n_chunks = cdiv(n, chunk_rows)
+    q = _build.aligned(queries.contiguous())
+    x, xn, kp = _build.aligned(x), _build.aligned(xn), _build.aligned(kp)
+    out_d = torch.empty((m, n_chunks * k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m, n_chunks * k), dtype=torch.int32, device=dev)
+
+    lib = _build.load("fused_knn_topk")
+    fn = lib.fused_knn_exact_hopper
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+
+    ptr = _build.ptr
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(ptr(q), ptr(qa), ptr(x), int(x_bf16), ptr(xn), ptr(kp), m,
+                n, d, k, chunk_rows, n_chunks, int(metric_kind), int(bf16),
+                bq, ns, ptr(out_d), ptr(out_i), stream)
+    _build.check(lib, "fused_knn_exact_hopper", rc)
+    _count("exact_hopper")
     return out_d, out_i
 
 

@@ -2,7 +2,7 @@
 
     python3 -m raft_tpu_torch.tools.kernel_ab DIR_A DIR_B [DIR_C ...]
                                               [--order ABBA] [--out FILE]
-                                              [--kernels 12|3|2d|2q|2e|2b|2f|1f]
+                                              [--kernels 12|3|2d|2q|2e|2b|2f|1f|1e]
 
 Each DIR is the root of a checkout (for example a parent commit unpacked
 with ``git archive``). For each letter of ``--order`` (A the first DIR, B
@@ -73,7 +73,17 @@ with its QPS and recall@10 beside the exact arm's, its fold launch
 captured and handed to ``fused_knn_fold``: held against the plain
 version (merged top-k) at the tolerance of the body it took through the
 same table, and timed whole and by stage (staging loads, epilogue and
-write-out; plus the dots; plus the lane-stack cascade). Alternating
+write-out; plus the dots; plus the lane-stack cascade). Kernel 1's exact arm (``--kernels 1e``): kernel 1 built at its
+three stage builds (with the exact Hopper body's registers and spills
+where the checkout builds it); the IVF-Flat main path
+(``chip_smoke.main_path``: SIFT-like 1M x 128, 10,000 queries, n_probes
+64, k 10) with its recall@10 against the exact brute force of 1,000
+queries, whose launch (f32 operands, k 10) is captured; the exact search
+of all 10,000 queries (``brute_force.search``, QPS, median of 5); and the
+fast path's ``impl="fused_exact"`` launch (bf16 operands, 10,000 x 1M,
+k_cand 42) captured; each launch held against the plain version at the
+tolerance of the body it took and timed whole and by stage (staging
+loads and epilogue; plus the dots; plus the selection). Alternating
 the checkouts (A B B A)
 on one card keeps the comparison free of the card's power limit and clocks,
 which differ between machines. Each run prints one JSON line; the last
@@ -105,6 +115,9 @@ def _child(root: str, kernels: str) -> dict:
     if "1f" in kernels:
         run.update(_fold(cs, dev, run["kernels"]))
         kernels = kernels.replace("1f", "")
+    if "1e" in kernels:
+        run.update(_exact(cs, dev, run["kernels"]))
+        kernels = kernels.replace("1e", "")
     if "2d" in kernels:
         run.update(_deep(cs, dev, run["kernels"]))
         kernels = kernels.replace("2d", "")
@@ -249,6 +262,91 @@ def _fold(cs, dev, kernels: dict) -> dict:
         "topk_ms": whole - ms[1],
         "bytes_bound_ms": bytes_ / cs.H100_HBM_BYTES_PER_S * 1e3,
         "ops_bound_ms": 2.0 * m * n * d / cs.H100_BF16_FLOPS * 1e3}
+    return out
+
+
+def _exact(cs, dev, kernels: dict) -> dict:
+    """Kernel 1's exact arm at the recall oracle's and the fast path's
+    captured launches, and the searches around them (module docstring)."""
+    import statistics
+
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops import _build, fused_topk
+
+    _build.build_all(names=("fused_knn_topk",),
+                     stage_set=(_build.FULL, 1, 0))
+    log = _build.BUILD_LOG.get("fused_knn_topk", "").splitlines()
+    out = {"ptxas": [" ".join(log[i:i + 4]) for i, ln in enumerate(log)
+                     if "Compiling entry function" in ln and
+                     "exact_hopper" in ln]}
+    res = cs.main_path(dev)
+    x, q = res["x"], res["q"]
+    out["ivf_flat"] = {"recall": res["recall"], "qps": res["qps"]}
+    index = brute_force.build(x, device=dev)
+    times = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        brute_force.search(index, q, 10)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    out["exact_search"] = {"qps": q.shape[0] / statistics.median(times),
+                           "batch_ms": [t * 1e3 for t in times]}
+    captured = {}
+    orig = fused_topk.fused_knn_topk
+
+    def rec(*a, **kw):
+        captured.setdefault("fast", (a, kw))
+        return orig(*a, **kw)
+
+    rec.launches = 0
+    rec.by_body = {}
+    fused_topk.fused_knn_topk = rec
+    try:
+        brute_force.search(index, q, 10, fast=True, impl="fused_exact")
+        torch.cuda.synchronize()
+    finally:
+        fused_topk.fused_knn_topk = orig
+    launches = {"oracle": res["captured"]["fused_knn_topk"],
+                "fast": captured["fast"]}
+    del index, res
+    torch.cuda.empty_cache()
+    for name, (args, kw) in launches.items():
+        fn = fused_topk.fused_knn_topk
+        before = dict(getattr(fn, "by_body", {}))
+
+        def kern(args=args, kw=kw):
+            return fused_topk.fused_knn_topk(*args, **kw)
+
+        kd, ki = kern()
+        body = next((b for b, c in getattr(fn, "by_body", {}).items()
+                     if c > before.get(b, 0)), "core")
+        pd, pi = fused_topk.fused_knn_topk_plain(*args, **kw)
+        exact = torch.equal(kd, pd) and torch.equal(ki, pi)
+        err = cs.compare(f"exact arm, {name} ({body})", kd, ki, pd, pi,
+                         **_tolerance(cs, body, args, kw))
+        del kd, ki, pd, pi
+        torch.cuda.empty_cache()
+        queries, dataset, k = args[:3]
+        whole, ms = _stage_ms(cs, kern, reps=3 if name == "fast" else 10)
+        m, d = queries.shape
+        n = dataset.shape[0]
+        flops = 2.0 * m * n * d
+        bf16 = queries.dtype == torch.bfloat16
+        kernels[f"exact_{name}"] = {
+            "shape": [m, n, d, k], "dtype": str(queries.dtype)[6:],
+            "body": body, "bit_exact": exact,
+            "max_abs_err": err["max_abs_err"],
+            "tie_free_keys": err["tie_free_keys"], "ms": whole,
+            "staging_ms": ms[0], "dots_ms": ms[1] - ms[0],
+            "topk_ms": whole - ms[1],
+            "ops_bound_ms": (flops / cs.H100_BF16_FLOPS if bf16 else
+                             3 * flops / 495e12) * 1e3,
+            "f32_cores_bound_ms": None if bf16 else
+            flops / cs.H100_F32_FLOPS * 1e3}
     return out
 
 
